@@ -1,0 +1,72 @@
+"""On-card checks of the CUDA kernels K1-K3 against their plain versions.
+
+Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
+so on a machine without JAX it runs as
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import rod
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    doubledouble as dd,
+)
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
+    refined_kernel as rfk,
+    rod_kernel as rk,
+)
+
+pytestmark = pytest.mark.gpu
+
+B = 1000            # ragged against every launch shape
+F32_TOL = 5e-5      # the 'high' gate of tests/test_pallas_kernel.py:26,43
+K3_TOL = 1e-9
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _qes(cuda, na, seed):
+    qe64 = 0.8 * np.random.default_rng(seed).standard_normal((B, 3 * na))
+    return dd.split_f64(torch.tensor(qe64, device=cuda))
+
+
+@pytest.mark.parametrize("n,na", [(8, 3), (16, 3), (16, 6), (33, 6)])
+def test_k1_k2_kernels_match_plain(cuda, n, na):
+    cfg = rod.RodConfig(n=n, na=na)
+    hi, _ = _qes(cuda, na, n)
+    before = (rk.rod_shape_fused.launches, rk.picard_correction_fused.launches)
+    q, r = rk.rod_shape_fused(hi, cfg)
+    qp, rp = rk.rod_shape_fused_plain(hi, cfg)
+    torch.testing.assert_close(q, qp, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(r, rp, atol=F32_TOL, rtol=0)
+    rhs = torch.randn((B, n - 1, 4), device=cuda, generator=torch.Generator(cuda).manual_seed(n))
+    x = rk.picard_correction_fused(hi, rhs, cfg)
+    torch.testing.assert_close(x, rk.picard_correction_plain(hi, rhs, cfg),
+                               atol=F32_TOL, rtol=0)
+    assert (rk.rod_shape_fused.launches, rk.picard_correction_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n,na", [(8, 3), (16, 3), (16, 6), (33, 6)])
+def test_k3_kernel_matches_plain(cuda, n, na):
+    cfg = rod.RodConfig(n=n, na=na)
+    hi, lo = _qes(cuda, na, 100 + n)
+    hi[3], lo[3] = 0.0, 0.0
+    hi[3, 3] = 16.0             # K_1 = 16, rho = 8: NaN in kernel and plain alike
+    before = rfk.rod_shape_refined_kernel.launches
+    outs = rfk.rod_shape_refined_kernel(hi, lo, cfg)
+    plain = rfk.rod_shape_refined_plain(hi, lo, cfg)
+    assert rfk.rod_shape_refined_kernel.launches == before + 1
+    for a, b in ((outs[:2], plain[:2]), (outs[2:], plain[2:])):
+        ja, jb = dd.join_f64(*a), dd.join_f64(*b)
+        assert torch.equal(torch.isnan(ja), torch.isnan(jb))
+        assert torch.isnan(ja[3]).all() and not torch.isnan(ja[4:]).any()
+        torch.testing.assert_close(ja, jb, atol=K3_TOL, rtol=0, equal_nan=True)
