@@ -5,14 +5,15 @@ Counterpart of the JAX package's ``models/rod.py``:
 * :func:`quaternion_kinematics` solves ``Q' = 1/2 A(K(X)) Q``, ``Q(0) = q_init``;
 * :func:`rod_shape` chains the position quadrature ``r' = R(Q) e1``,
   ``r(0) = r_init``, on the same grid; methods 'dense', 'picard', 'refined'
-  and 'fused' (the K1 CUDA kernel);
+  and 'fused' (the K1 CUDA kernel, narrow or wide);
 * :func:`rod_shape_refined_fused` is the accuracy-gated headline path: the
   single K3 kernel, or the staged path of K2 solves around float64
   residuals and quadrature.
 
-Inputs are torch tensors (or arrays, taken as CPU tensors) of shape
-``(..., na*ne)``, or an f32 pair ``(hi, lo)`` from :func:`split_strain`.
-Everything runs on the input's device.  As in the reference
+Inputs are torch tensors of shape ``(..., na*ne)``, or an f32 pair
+``(hi, lo)`` from :func:`split_strain`; numpy arrays and lists go to the
+default device, the card (``ops/device.py``).  Everything runs on the
+input's device.  As in the reference
 (``main.cpp:130-136``) the position right-hand side uses the
 **unnormalized** quaternion-to-rotation map unless
 ``normalize_quaternions=True``.
@@ -31,6 +32,7 @@ from ..ops import chebyshev
 from ..ops import collocation as coll
 from ..ops import doubledouble as dd
 from ..ops import lie
+from ..ops.device import as_tensor, canonical_device
 
 __all__ = [
     "RodConfig",
@@ -81,17 +83,17 @@ def _table(cfg: RodConfig, device: torch.device) -> torch.Tensor:
 
 def _basis_table(cfg: RodConfig, device) -> torch.Tensor:
     """The f64 basis table on ``device``, cached per ``(cfg, device)``."""
-    return _table(cfg, coll.canonical_device(device))
+    return _table(cfg, canonical_device(device))
 
 
 def demo_qe(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """The demo strain of ``main.cpp:187-195``: bending about body-y, three
-    Legendre modes."""
+    Legendre modes (on the card unless ``device`` says otherwise)."""
     return torch.tensor(
         [0.0, 0.0, 0.0,
          1.2877691307032, -1.63807499160786, 0.437406679142598,
          0.0, 0.0, 0.0],
-        dtype=dtype, device=device,
+        dtype=dtype, device=canonical_device(device),
     )
 
 
@@ -110,16 +112,16 @@ def _as_dd_input(qe):
     """``(hi f32, lo f32 or None)`` from a pair, an f64 tensor or f32 input."""
     if isinstance(qe, tuple):
         hi, lo = qe
-        hi = torch.as_tensor(hi).to(torch.float32)
+        hi = as_tensor(hi).to(torch.float32)
         return hi, torch.as_tensor(lo).to(device=hi.device, dtype=torch.float32)
-    qe = torch.as_tensor(qe)
+    qe = as_tensor(qe)
     if qe.dtype == torch.float64:
         return dd.split_f64(qe)
     return qe.to(torch.float32), None
 
 
 def _hi_word(qe) -> torch.Tensor:
-    return torch.as_tensor(qe[0] if isinstance(qe, tuple) else qe)
+    return as_tensor(qe[0] if isinstance(qe, tuple) else qe)
 
 
 def _curvature_f64(cfg: RodConfig, qe) -> torch.Tensor:
@@ -269,7 +271,8 @@ def rod_shape_refined_fused(qe, cfg: RodConfig = RodConfig(), iters: int = 20,
     ``qe`` may be an f32 pair from :func:`split_strain`.  ``tile`` is
     accepted so that calls written for the JAX package run unchanged; the
     CUDA kernels choose their own launch shape.  The kernels cover
-    n-1 <= 32 and raise ``ValueError`` beyond.
+    n-1 <= 512 (narrow kernels to 32, wide above) and raise ``ValueError``
+    beyond, as the JAX package's do.
     """
     from ..ops.kernels import rod_kernel as rk
 

@@ -19,6 +19,7 @@ __all__ = [
     "diff_matrix",
     "split_endpoint",
     "integration_matrix",
+    "partial_integral_matrix",
     "clenshaw_curtis_weights",
 ]
 
@@ -86,6 +87,22 @@ def integration_matrix(n: int, length: float = 1.0,
     """``G = D_NN^{-1}``, the discrete spectral integration operator (f64 solve)."""
     d_nn, _ = split_endpoint(diff_matrix(n, length), known)
     return _frozen(np.linalg.solve(d_nn, np.eye(d_nn.shape[0])))
+
+
+@functools.lru_cache(maxsize=None)
+def partial_integral_matrix(n: int, length: float = 1.0) -> np.ndarray:
+    """``T``: values on the full grid -> tail integrals ``int_{x_i}^{L} f``.
+
+    From the spectral antiderivative ``F = G f`` (``F(0) = 0``):
+    ``int_{x_i}^L f = F(tip) - F(x_i)``, the tip at index 0 (descending
+    order).  Row ``n-1`` (the base) is the full integral; the base column
+    is zero.  Used by the distributed load of the statics residual.
+    """
+    g = integration_matrix(n, length)
+    t = np.zeros((n, n))
+    t[: n - 1, : n - 1] = g[0][None, :] - g
+    t[n - 1, : n - 1] = g[0]
+    return _frozen(t)
 
 
 @functools.lru_cache(maxsize=None)

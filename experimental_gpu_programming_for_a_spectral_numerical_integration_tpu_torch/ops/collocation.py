@@ -30,6 +30,7 @@ import torch
 
 from . import chebyshev
 from . import doubledouble as dd
+from .device import canonical_device
 from .lie import quat_skew_apply
 
 __all__ = [
@@ -65,18 +66,10 @@ class SpectralGrid:
         return self.n - 1
 
 
-def canonical_device(device=None) -> torch.device:
-    """``torch.device`` with the CUDA index filled in, so caches keyed on a
-    device see one key per card."""
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def make_grid(n: int, length: float = 1.0, known: str = "last",
               device=None) -> SpectralGrid:
-    """The grid's f64 host constants, moved to ``device`` once and cached.
+    """The grid's f64 host constants, moved to ``device`` (default: the
+    card) once and cached.
 
     ``known='last'``: the boundary value sits at ``x[n-1] = 0``, the
     reference's IVP case; the unknowns are points ``0..n-2``, tip first.

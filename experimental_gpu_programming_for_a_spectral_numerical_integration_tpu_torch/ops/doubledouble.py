@@ -14,13 +14,16 @@ from __future__ import annotations
 
 import torch
 
+from .device import as_tensor
+
 __all__ = ["split_f64", "join_f64"]
 
 
 def split_f64(a) -> tuple[torch.Tensor, torch.Tensor]:
-    """Split a float64 tensor (or array) into an f32 pair: ``hi = f32(a)``,
-    ``lo = f32(a - hi)``; ``hi + lo`` keeps ~48 bits of the mantissa."""
-    a = torch.as_tensor(a, dtype=torch.float64)
+    """Split a float64 tensor (or array, taken to the default device) into
+    an f32 pair: ``hi = f32(a)``, ``lo = f32(a - hi)``; ``hi + lo`` keeps
+    ~48 bits of the mantissa."""
+    a = as_tensor(a, torch.float64)
     hi = a.to(torch.float32)
     lo = (a - hi.to(torch.float64)).to(torch.float32)
     return hi, lo

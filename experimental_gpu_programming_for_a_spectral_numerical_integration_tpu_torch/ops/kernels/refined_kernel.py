@@ -1,8 +1,11 @@
 """K3: the whole refined rod solve in one kernel.
 
-Source: ``csrc/refined_kernel.cu``.  It replaces the JAX package's Pallas
-TPU kernel ``ops/pallas/refined_kernel.py`` ``rod_shape_refined_kernel``
-(body ``_kernel``), the headline path of ``rod_shape_refined_fused``:
+Sources: ``csrc/refined_kernel.cu`` (narrow grids, n-1 <= 32) and
+``csrc/refined_wide_kernel.cu`` (K3 wide, 32 < n-1 <= 512).  They replace
+the JAX package's Pallas TPU kernel ``ops/pallas/refined_kernel.py``
+``rod_shape_refined_kernel`` (bodies ``_kernel``, ``_kernel_wide_refined``
+and ``_kernel_pair_refined``, which differ only in how they pack rods onto
+the TPU's tiles), the headline path of ``rod_shape_refined_fused``:
 
 1. ``K = Phi (qe_hi + qe_lo)`` in FP64 from the f64 basis table;
 2. f32 Picard base solve ``s`` (as K1, with ``K/2`` rounded to f32);
@@ -26,7 +29,10 @@ traffic is ~ 72 bytes in and 15 x 14 x 4 = 840 bytes out per rod; it is
 FMA bound.  Same design as K1 (one P-lane group per rod, a lane per point,
 G's f32 row in registers), plus ``Dn_NN`` and ``G`` in FP64 in shared
 memory, stored transposed so that a column read is one conflict-free
-row of doubles.
+row of doubles.  K3 wide runs the f32 loops as K1 wide does (a rod spans
+several warps, G^T streamed through L1/L2 against a shared-memory panel),
+reads ``Dn_NN^T`` and ``G^T`` in FP64 from device memory for the two FP64
+products, and takes the rho sentinel's max with a shared-memory atomic.
 
 Beside the kernel: its plain PyTorch version (CPU tensors only in the
 wrapper; a CUDA tensor launches the kernel or raises) and a launch count
@@ -43,13 +49,14 @@ import torch
 
 from .. import basis as basis_ops
 from .. import doubledouble as dd
-from ..collocation import canonical_device
+from ..device import canonical_device
 from ..lie import quat_skew_apply, rod_tangent
 from ...models.rod import RodConfig
 from . import build
 from . import rod_kernel as rk
 
-__all__ = ["rod_shape_refined_kernel", "rod_shape_refined_plain", "build_library"]
+__all__ = ["rod_shape_refined_kernel", "rod_shape_refined_kernel_wide",
+           "rod_shape_refined_plain", "build_library", "build_wide_library"]
 
 _I, _P, _D = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 _SIGNATURES = {
@@ -58,12 +65,20 @@ _SIGNATURES = {
     "rod_shape_refined": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _I, _D, _P, _P, _P, _P, _P],
 }
+# Same arguments, with the transposed operators G^T (f32, f64) and Dn_NN^T.
+_WIDE_SIGNATURES = {"rod_shape_refined_wide": _SIGNATURES["rod_shape_refined"]}
 
 
 @functools.lru_cache(maxsize=None)
 def build_library() -> ctypes.CDLL:
     """Compile (once per process) and load ``csrc/refined_kernel.cu``."""
     return build.load_library("refined_kernel", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def build_wide_library() -> ctypes.CDLL:
+    """Compile (once per process) and load ``csrc/refined_wide_kernel.cu``."""
+    return build.load_library("refined_wide_kernel", _WIDE_SIGNATURES)
 
 
 @dataclass(frozen=True, eq=False)
@@ -75,6 +90,8 @@ class RefinedConstants:
     dn64: torch.Tensor     # (P, P) Dn_NN
     ptab64: torch.Tensor   # (P, ne) basis table
     din64: torch.Tensor    # (P,) dn_in
+    g64t: torch.Tensor | None    # (P, P) G^T, wide grids only
+    dn64t: torch.Tensor | None   # (P, P) Dn_NN^T, wide grids only
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,12 +99,15 @@ def _constants(cfg: RodConfig, device: torch.device) -> RefinedConstants:
     ginv, dn_nn, dn_in, table = rk.host_operators(cfg)
     c32 = rk.constants(cfg, device)
     p, f64 = c32.p, torch.float64
+    wide = rk.is_wide(c32.npts)
     return RefinedConstants(
         f32=c32,
         g64=rk.padded(ginv, (p, p), f64, device),
         dn64=rk.padded(dn_nn, (p, p), f64, device),
         ptab64=rk.padded(table, (p, cfg.ne), f64, device),
         din64=rk.padded(dn_in, (p,), f64, device),
+        g64t=rk.padded(ginv.T, (p, p), f64, device) if wide else None,
+        dn64t=rk.padded(dn_nn.T, (p, p), f64, device) if wide else None,
     )
 
 
@@ -133,16 +153,7 @@ def rod_shape_refined_plain(qes: torch.Tensor, qes_lo: torch.Tensor | None = Non
     return tuple(outs)
 
 
-def rod_shape_refined_kernel(qes, qes_lo=None, cfg: RodConfig = RodConfig(),
-                             iters: int = 20, corr_iters: int = 20,
-                             check_rho: float | None = 5.0):
-    """Fully fused refined solve (K3).
-
-    ``qes (B, na*ne)`` (+ optional low word ``qes_lo`` from
-    ``rod.split_strain``) -> ``(q_hi, q_lo, r_hi, r_lo)``, each
-    ``(B, n-1, dim)`` f32: pairs whose f64 sum is the refined solution.
-    Rods with ``max|K| L/2 > check_rho`` come back NaN (``None``: no check).
-    """
+def _check_inputs(qes, qes_lo, cfg: RodConfig):
     if cfg.na not in (3, 6):
         raise ValueError("the refined kernel supports na in (3, 6)")
     qes = rk.check_qes(qes, cfg)
@@ -152,23 +163,69 @@ def rod_shape_refined_kernel(qes, qes_lo=None, cfg: RodConfig = RodConfig(),
         if qes_lo.shape != qes.shape:
             raise ValueError(f"qes_lo must match qes {tuple(qes.shape)}, got "
                              f"{tuple(qes_lo.shape)}")
-    if not rk.on_cuda(qes, "rod_shape_refined_kernel"):
-        return rod_shape_refined_plain(qes, qes_lo, cfg, iters, corr_iters, check_rho)
+    return qes, qes_lo
+
+
+def _launch(entry, qes, qes_lo, cfg: RodConfig, iters: int, corr_iters: int,
+            check_rho: float | None, what: str):
     c = constants(cfg, qes.device)
-    lib = build_library()
     b, n1 = qes.shape[0], c.f32.npts
     q = torch.empty((2, b, n1, 4), dtype=torch.float32, device=qes.device)
     r = torch.empty((2, b, n1, 3), dtype=torch.float32, device=qes.device)
+    if rk.is_wide(n1):   # the wide kernel reads the operators' columns
+        g32, g64, dn64 = c.f32.gt, c.g64t, c.dn64t
+    else:
+        g32, g64, dn64 = c.f32.g, c.g64, c.dn64
     p = build.ptr
     with torch.cuda.device(qes.device):
-        err = lib.rod_shape_refined(
-            p(qes), p(qes_lo), b, n1, c.f32.p, cfg.na, cfg.ne, p(c.f32.g),
-            p(c.f32.gvec), p(c.g64), p(c.dn64), p(c.ptab64), p(c.din64),
+        err = entry(
+            p(qes), p(qes_lo), b, n1, c.f32.p, cfg.na, cfg.ne, p(g32),
+            p(c.f32.gvec), p(g64), p(dn64), p(c.ptab64), p(c.din64),
             int(iters), int(corr_iters), _rho2_limit(check_rho, cfg),
             p(q[0]), p(q[1]), p(r[0]), p(r[1]), build.stream_of(qes))
-    build.check_launch(err, "rod_shape_refined_kernel")
-    rod_shape_refined_kernel.launches += 1
+    build.check_launch(err, what)
     return q[0], q[1], r[0], r[1]
 
 
+def rod_shape_refined_kernel(qes, qes_lo=None, cfg: RodConfig = RodConfig(),
+                             iters: int = 20, corr_iters: int = 20,
+                             check_rho: float | None = 5.0):
+    """Fully fused refined solve (K3).
+
+    ``qes (B, na*ne)`` (+ optional low word ``qes_lo`` from
+    ``rod.split_strain``) -> ``(q_hi, q_lo, r_hi, r_lo)``, each
+    ``(B, n-1, dim)`` f32: pairs whose f64 sum is the refined solution.
+    Rods with ``max|K| L/2 > check_rho`` come back NaN (``None``: no check).
+    Grids with 32 < n-1 <= 512 go to K3 wide
+    (:func:`rod_shape_refined_kernel_wide`).
+    """
+    qes, qes_lo = _check_inputs(qes, qes_lo, cfg)
+    if rk.is_wide(cfg.n - 1):
+        return rod_shape_refined_kernel_wide(qes, qes_lo, cfg, iters, corr_iters, check_rho)
+    if not rk.on_cuda(qes, "rod_shape_refined_kernel"):
+        return rod_shape_refined_plain(qes, qes_lo, cfg, iters, corr_iters, check_rho)
+    outs = _launch(build_library().rod_shape_refined, qes, qes_lo, cfg, iters, corr_iters,
+                   check_rho, "rod_shape_refined_kernel")
+    rod_shape_refined_kernel.launches += 1
+    return outs
+
+
 rod_shape_refined_kernel.launches = 0
+
+
+def rod_shape_refined_kernel_wide(qes, qes_lo=None, cfg: RodConfig = RodConfig(n=64),
+                                  iters: int = 20, corr_iters: int = 20,
+                                  check_rho: float | None = 5.0):
+    """K3 wide: :func:`rod_shape_refined_kernel` on grids with
+    32 < n-1 <= 512 (``csrc/refined_wide_kernel.cu``)."""
+    rk._check_width(cfg, True, "rod_shape_refined_kernel_wide")
+    qes, qes_lo = _check_inputs(qes, qes_lo, cfg)
+    if not rk.on_cuda(qes, "rod_shape_refined_kernel_wide"):
+        return rod_shape_refined_plain(qes, qes_lo, cfg, iters, corr_iters, check_rho)
+    outs = _launch(build_wide_library().rod_shape_refined_wide, qes, qes_lo, cfg, iters,
+                   corr_iters, check_rho, "rod_shape_refined_kernel_wide")
+    rod_shape_refined_kernel_wide.launches += 1
+    return outs
+
+
+rod_shape_refined_kernel_wide.launches = 0

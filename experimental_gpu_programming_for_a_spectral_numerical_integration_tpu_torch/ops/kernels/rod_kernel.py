@@ -1,7 +1,10 @@
 """K1 and K2: the fused f32 rod solve and its general right-hand-side solve.
 
-Source: ``csrc/rod_kernel.cu``.  They replace the JAX package's Pallas TPU
-kernels in ``ops/pallas/rod_kernel.py``:
+Sources: ``csrc/rod_kernel.cu`` (narrow grids, n-1 <= 32) and
+``csrc/rod_wide_kernel.cu`` (wide grids, 32 < n-1 <= 512).  They replace the
+JAX package's Pallas TPU kernels in ``ops/pallas/rod_kernel.py``, whose
+narrow, wide and paired bodies differ only in how they pack rods onto the
+TPU's tiles:
 
 * K1 ``rod_shape_fused`` (body ``_kernel``): ``qe -> K = Phi qe`` -> f32
   Picard fixed point ``s = G rhs + G (1/2 A(K)) s`` with the demo boundary
@@ -9,19 +12,28 @@ kernels in ``ops/pallas/rod_kernel.py``:
   ``R(s) e1`` (``R(s)(e1 + gamma)`` for na=6) -> position ``r = G b``;
 * K2 ``picard_correction_fused`` (body ``_corr_kernel``): the same Picard
   operator for a per-rod right-hand side, ``(I ⊗ Dn_NN - 1/2 A_hat) x = rhs``,
-  reading only the 3 curvature components of ``qe``.
+  reading only the 3 curvature components of ``qe``;
+* K1 wide ``rod_shape_fused_wide`` and K2 wide ``picard_correction_fused_wide``
+  (bodies ``_kernel_wide``/``_kernel_pair`` and ``_corr_kernel_wide``/
+  ``_corr_kernel_pair``): the same functions on wide grids.  The public
+  ``rod_shape_fused`` and ``picard_correction_fused`` route there.
 
 What bounds them on an H100: at N=16 a rod costs about 20 x (15*15*4 +
 15*12) = 21,600 FP32 FMAs against ~456 bytes of device traffic (9 floats
 in, 15 x 7 floats out), about 47 FMAs per byte, far above the card's
 ~10 FP32 FLOP per byte of HBM bandwidth: they are FP32-FMA bound.  The
-design therefore keeps every operand on chip: one group of P = 8, 16 or
+narrow design therefore keeps every operand on chip: one group of P = 8, 16 or
 32 lanes per rod (P the next power of two >= n-1; 2 rods per warp at
 N=16), lane i owns point i's quaternion, its curvature and row i of G in
 registers; each Picard step exchanges the 4-vector ``A(K) s`` through a
 per-rod shared-memory slot (one broadcast 16-byte load per column j), so
 the inner loop is 4 FMAs per shared load and device memory sees only ``qe``
-in and the result out.  The TPU layout (128-sublane rod packing, the
+in and the result out.  On wide grids a row of G no longer fits a lane's
+registers (255 floats at n=256) nor G a block's shared memory (260 KB), so
+the wide kernels give a rod several warps: a block of 256 threads holds R
+rods, each thread TM points of one rod; a Picard step exchanges ``A(K/2) s``
+through a shared-memory panel and streams G^T through L1/L2
+(``csrc/wide_common.cuh``).  The TPU layout (128-sublane rod packing, the
 bf16x3 matmul emulation) does not carry over.
 
 Arithmetic is plain FP32 FMA for every ``precision`` value the JAX API
@@ -44,17 +56,19 @@ import numpy as np
 import torch
 
 from .. import basis as basis_ops
-from ..collocation import canonical_device
+from ..device import as_tensor, canonical_device
 from ..lie import quat_skew_apply, rod_tangent
 from ...models.rod import RodConfig
 from . import build
 
-__all__ = ["rod_shape_fused", "rod_shape_fused_plain",
+__all__ = ["rod_shape_fused", "rod_shape_fused_plain", "rod_shape_fused_wide",
            "picard_correction_fused", "picard_correction_plain",
-           "PRECISIONS", "MAX_POINTS", "build_library"]
+           "picard_correction_fused_wide", "PRECISIONS", "MAX_POINTS",
+           "NARROW_POINTS", "build_library", "build_wide_library"]
 
 PRECISIONS = ("float32", "high", "default", "highest")
-MAX_POINTS = 32
+NARROW_POINTS = 32   # n-1 of the narrow kernels; wide kernels above
+MAX_POINTS = 512     # the JAX package's WIDE_MAX_PTS
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
@@ -62,6 +76,11 @@ _SIGNATURES = {
     "rod_shape_fused_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     # qes, B, npts, P, nq, ne, g, ptab, rhs, iters, x_out, stream
     "picard_correction_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+}
+# Same arguments, with G^T in place of G.
+_WIDE_SIGNATURES = {
+    "rod_shape_fused_wide_f32": _SIGNATURES["rod_shape_fused_f32"],
+    "picard_correction_wide_f32": _SIGNATURES["picard_correction_f32"],
 }
 
 
@@ -71,15 +90,27 @@ def build_library() -> ctypes.CDLL:
     return build.load_library("rod_kernel", _SIGNATURES)
 
 
+@functools.lru_cache(maxsize=None)
+def build_wide_library() -> ctypes.CDLL:
+    """Compile (once per process) and load ``csrc/rod_wide_kernel.cu``."""
+    return build.load_library("rod_wide_kernel", _WIDE_SIGNATURES)
+
+
 def lanes_per_rod(npts: int) -> int:
-    """P: the next power of two >= n-1 (8, 16 or 32 lanes per rod)."""
-    for p in (8, 16, 32):
+    """P, the padded width of a rod: the next power of two >= n-1, at
+    least 8 (narrow kernels: lanes per rod) or 64 (wide kernels: points)."""
+    for p in (8, 16, 32, 64, 128, 256, 512):
         if npts <= p:
             return p
     raise ValueError(
         f"the CUDA rod kernels cover n-1 <= {MAX_POINTS} points (got "
-        f"{npts}); larger grids wait for the wide-grid kernels "
-        "(ROADMAP.md Queue 2, K1-K3 wide and paired)")
+        f"{npts}), as the JAX package's Pallas kernels do; use "
+        "rod_shape(method='picard' or 'dense') beyond that")
+
+
+def is_wide(npts: int) -> bool:
+    """Grids the wide kernels take: 32 < n-1 <= 512."""
+    return NARROW_POINTS < npts <= MAX_POINTS
 
 
 @dataclass(frozen=True, eq=False)
@@ -92,6 +123,7 @@ class KernelConstants:
     g: torch.Tensor        # (P, P) G = Dn_NN^{-1}
     ptab: torch.Tensor     # (P, ne) basis table at the unknown points
     gvec: torch.Tensor     # (P,) G (-dn_in): G rhs for q0 = (1,0,0,0)
+    gt: torch.Tensor | None   # (P, P) G^T, wide grids only
 
 
 def host_operators(cfg: RodConfig):
@@ -121,6 +153,7 @@ def _constants(cfg: RodConfig, device: torch.device) -> KernelConstants:
         g=padded(ginv, (p, p), f32, device),
         ptab=padded(table, (p, cfg.ne), f32, device),
         gvec=padded(-(ginv @ dn_in), (p,), f32, device),
+        gt=padded(ginv.T, (p, p), f32, device) if is_wide(npts) else None,
     )
 
 
@@ -130,10 +163,11 @@ def constants(cfg: RodConfig, device) -> KernelConstants:
 
 def check_qes(qes, cfg: RodConfig, precision: str = "high") -> torch.Tensor:
     """Validate a strain batch for the kernels: 2-D ``(B, na*ne)``, B > 0,
-    n-1 <= 32; returns it as a contiguous f32 tensor."""
+    n-1 <= 512; returns it as a contiguous f32 tensor (a tensor keeps its
+    device, other input goes to the default device)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    qes = torch.as_tensor(qes).to(torch.float32).contiguous()
+    qes = as_tensor(qes).to(torch.float32).contiguous()
     if qes.ndim != 2 or qes.shape[1] != cfg.na * cfg.ne:
         raise ValueError(f"qes must be (B, {cfg.na * cfg.ne}), got {tuple(qes.shape)}")
     if qes.shape[0] == 0:
@@ -192,30 +226,44 @@ def on_cuda(t: torch.Tensor, what: str) -> bool:
                      f"got {t.device}")
 
 
+def _check_width(cfg: RodConfig, wide: bool, what: str) -> None:
+    if is_wide(cfg.n - 1) != wide:
+        raise ValueError(f"{what} takes {'32 < n-1 <= 512' if wide else 'n-1 <= 32'} "
+                         f"points, got n-1 = {cfg.n - 1}")
+
+
+def _launch_fused(entry, gmat, qes: torch.Tensor, cfg: RodConfig, c: KernelConstants,
+                  iters: int, what: str):
+    b = qes.shape[0]
+    q = torch.empty((b, c.npts, 4), dtype=torch.float32, device=qes.device)
+    r = torch.empty((b, c.npts, 3), dtype=torch.float32, device=qes.device)
+    with torch.cuda.device(qes.device):
+        err = entry(build.ptr(qes), b, c.npts, c.p, cfg.na, cfg.ne, build.ptr(gmat),
+                    build.ptr(c.ptab), build.ptr(c.gvec), int(iters), build.ptr(q),
+                    build.ptr(r), build.stream_of(qes))
+    build.check_launch(err, what)
+    return q, r
+
+
 def rod_shape_fused(qes, cfg: RodConfig = RodConfig(), iters: int = 20,
                     precision: str = "high"):
     """Batched fused rod solve (K1): ``qes (B, na*ne) -> (Q (B, n-1, 4), r (B, n-1, 3))``.
 
     Same semantics as ``rod_shape(..., method='picard')`` with the demo
     boundary conditions; f32 throughout.  CUDA tensors run the kernel, CPU
-    tensors its plain version.
+    tensors its plain version.  Grids with 32 < n-1 <= 512 go to K1 wide
+    (:func:`rod_shape_fused_wide`).
     """
     if cfg.na not in (3, 6):
         raise ValueError("rod_shape_fused supports na in (3, 6)")
     qes = check_qes(qes, cfg, precision)
+    if is_wide(cfg.n - 1):
+        return rod_shape_fused_wide(qes, cfg, iters, precision)
     if not on_cuda(qes, "rod_shape_fused"):
         return rod_shape_fused_plain(qes, cfg, iters)
     c = constants(cfg, qes.device)
-    lib = build_library()
-    b = qes.shape[0]
-    q = torch.empty((b, c.npts, 4), dtype=torch.float32, device=qes.device)
-    r = torch.empty((b, c.npts, 3), dtype=torch.float32, device=qes.device)
-    with torch.cuda.device(qes.device):
-        err = lib.rod_shape_fused_f32(
-            build.ptr(qes), b, c.npts, c.p, cfg.na, cfg.ne, build.ptr(c.g),
-            build.ptr(c.ptab), build.ptr(c.gvec), int(iters), build.ptr(q),
-            build.ptr(r), build.stream_of(qes))
-    build.check_launch(err, "rod_shape_fused")
+    q, r = _launch_fused(build_library().rod_shape_fused_f32, c.g, qes, cfg, c, iters,
+                         "rod_shape_fused")
     rod_shape_fused.launches += 1
     return q, r
 
@@ -223,34 +271,86 @@ def rod_shape_fused(qes, cfg: RodConfig = RodConfig(), iters: int = 20,
 rod_shape_fused.launches = 0
 
 
-def picard_correction_fused(qes, rhs, cfg: RodConfig = RodConfig(),
-                            iters: int = 20, precision: str = "high"):
-    """Fused solve of ``(I ⊗ Dn_NN - 1/2 A_hat(qe)) x = rhs`` per rod (K2).
-
-    ``qes (B, na*ne)``, ``rhs (B, n-1, 4)`` -> ``x (B, n-1, 4)``, f32.  The
-    inner solver of iterative refinement.
-    """
+def rod_shape_fused_wide(qes, cfg: RodConfig = RodConfig(n=64), iters: int = 20,
+                         precision: str = "high"):
+    """K1 wide: :func:`rod_shape_fused` on grids with 32 < n-1 <= 512
+    (``csrc/rod_wide_kernel.cu``)."""
+    if cfg.na not in (3, 6):
+        raise ValueError("rod_shape_fused supports na in (3, 6)")
+    _check_width(cfg, True, "rod_shape_fused_wide")
     qes = check_qes(qes, cfg, precision)
+    if not on_cuda(qes, "rod_shape_fused_wide"):
+        return rod_shape_fused_plain(qes, cfg, iters)
+    c = constants(cfg, qes.device)
+    q, r = _launch_fused(build_wide_library().rod_shape_fused_wide_f32, c.gt, qes, cfg, c,
+                         iters, "rod_shape_fused_wide")
+    rod_shape_fused_wide.launches += 1
+    return q, r
+
+
+rod_shape_fused_wide.launches = 0
+
+
+def _check_rhs(qes: torch.Tensor, rhs, cfg: RodConfig, what: str) -> torch.Tensor:
     rhs = torch.as_tensor(rhs).to(device=qes.device, dtype=torch.float32).contiguous()
     npts = cfg.n - 1
     if tuple(rhs.shape) != (qes.shape[0], npts, 4):
         raise ValueError(f"rhs must be ({qes.shape[0]}, {npts}, 4), got "
                          f"{tuple(rhs.shape)}")
-    if not on_cuda(qes, "picard_correction_fused"):
-        return picard_correction_plain(qes, rhs, cfg, iters)
-    if rhs.data_ptr() % 16:
-        raise ValueError("picard_correction_fused: rhs must be 16-byte aligned")
-    c = constants(cfg, qes.device)
-    lib = build_library()
+    if qes.device.type == "cuda" and rhs.data_ptr() % 16:
+        raise ValueError(f"{what}: rhs must be 16-byte aligned")
+    return rhs
+
+
+def _launch_correction(entry, gmat, qes: torch.Tensor, rhs: torch.Tensor,
+                       cfg: RodConfig, c: KernelConstants, iters: int, what: str):
     x = torch.empty_like(rhs)
     with torch.cuda.device(qes.device):
-        err = lib.picard_correction_f32(
-            build.ptr(qes), qes.shape[0], npts, c.p, cfg.na * cfg.ne, cfg.ne,
-            build.ptr(c.g), build.ptr(c.ptab), build.ptr(rhs), int(iters),
-            build.ptr(x), build.stream_of(qes))
-    build.check_launch(err, "picard_correction_fused")
+        err = entry(build.ptr(qes), qes.shape[0], c.npts, c.p, cfg.na * cfg.ne, cfg.ne,
+                    build.ptr(gmat), build.ptr(c.ptab), build.ptr(rhs), int(iters),
+                    build.ptr(x), build.stream_of(qes))
+    build.check_launch(err, what)
+    return x
+
+
+def picard_correction_fused(qes, rhs, cfg: RodConfig = RodConfig(),
+                            iters: int = 20, precision: str = "high"):
+    """Fused solve of ``(I ⊗ Dn_NN - 1/2 A_hat(qe)) x = rhs`` per rod (K2).
+
+    ``qes (B, na*ne)``, ``rhs (B, n-1, 4)`` -> ``x (B, n-1, 4)``, f32.  The
+    inner solver of iterative refinement.  Grids with 32 < n-1 <= 512 go to
+    K2 wide (:func:`picard_correction_fused_wide`).
+    """
+    qes = check_qes(qes, cfg, precision)
+    if is_wide(cfg.n - 1):
+        return picard_correction_fused_wide(qes, rhs, cfg, iters, precision)
+    rhs = _check_rhs(qes, rhs, cfg, "picard_correction_fused")
+    if not on_cuda(qes, "picard_correction_fused"):
+        return picard_correction_plain(qes, rhs, cfg, iters)
+    c = constants(cfg, qes.device)
+    x = _launch_correction(build_library().picard_correction_f32, c.g, qes, rhs, cfg, c,
+                           iters, "picard_correction_fused")
     picard_correction_fused.launches += 1
     return x
 
 
 picard_correction_fused.launches = 0
+
+
+def picard_correction_fused_wide(qes, rhs, cfg: RodConfig = RodConfig(n=64),
+                                 iters: int = 20, precision: str = "high"):
+    """K2 wide: :func:`picard_correction_fused` on grids with
+    32 < n-1 <= 512 (``csrc/rod_wide_kernel.cu``)."""
+    _check_width(cfg, True, "picard_correction_fused_wide")
+    qes = check_qes(qes, cfg, precision)
+    rhs = _check_rhs(qes, rhs, cfg, "picard_correction_fused_wide")
+    if not on_cuda(qes, "picard_correction_fused_wide"):
+        return picard_correction_plain(qes, rhs, cfg, iters)
+    c = constants(cfg, qes.device)
+    x = _launch_correction(build_wide_library().picard_correction_wide_f32, c.gt, qes, rhs,
+                           cfg, c, iters, "picard_correction_fused_wide")
+    picard_correction_fused_wide.launches += 1
+    return x
+
+
+picard_correction_fused_wide.launches = 0

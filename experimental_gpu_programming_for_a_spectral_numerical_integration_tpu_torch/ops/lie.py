@@ -18,6 +18,9 @@ __all__ = [
     "quat_to_rot",
     "quat_tangent",
     "rod_tangent",
+    "cross",
+    "quat_rotate_normalized",
+    "quat_rotate_inv_normalized",
     "quat_normalize",
     "quat_multiply",
     "quat_conjugate",
@@ -110,6 +113,28 @@ def rod_tangent(q: torch.Tensor, gamma: torch.Tensor | None = None) -> torch.Ten
     e1 = torch.zeros_like(gamma)
     e1[..., 0] = 1.0
     return torch.einsum("...ij,...j->...i", quat_to_rot(q), e1 + gamma)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a x b`` over the last axis, broadcasting the leading axes."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def quat_rotate_normalized(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``R(q/|q|) v`` without the 3x3 matrix:
+    ``v + (2/|q|^2) [s (u x v) + u x (u x v)]`` with ``q = (s, u)``."""
+    s, u = q[..., :1], q[..., 1:]
+    uv = cross(u, v)
+    return v + (2.0 / torch.sum(q * q, dim=-1, keepdim=True)) * (s * uv + cross(u, uv))
+
+
+def quat_rotate_inv_normalized(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``R(q/|q|)^T v`` (the inverse rotation), vector form."""
+    s, u = q[..., :1], q[..., 1:]
+    uv = cross(u, v)
+    return v + (2.0 / torch.sum(q * q, dim=-1, keepdim=True)) * (-s * uv + cross(u, uv))
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Carry the JAX package's state into the port, without importing jax.
 
-The system has no learned weights: its state is the rod configuration and
-the f64 spectral constants.  Both functions take plain attributes and
-NumPy arrays, so the JAX objects can be handed over as they are.
+The system has no learned weights: its state is the rod and statics
+configurations and the f64 spectral constants.  These functions take plain
+attributes and NumPy arrays, so the JAX objects can be handed over as they
+are.
 """
 
 from __future__ import annotations
@@ -10,10 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.cosserat import StaticsConfig
 from ..models.rod import RodConfig
-from ..ops.collocation import SpectralGrid, canonical_device
+from ..ops.collocation import SpectralGrid
+from ..ops.device import canonical_device
 
-__all__ = ["rod_config_from_jax", "grid_from_numpy"]
+__all__ = ["rod_config_from_jax", "statics_config_from_jax", "grid_from_numpy"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -23,9 +26,27 @@ def rod_config_from_jax(cfg) -> RodConfig:
                      length=float(cfg.length), basis=str(cfg.basis))
 
 
+def _floats(v):
+    """Nested tuples of floats (a stiffness profile stays ``(n, na)``)."""
+    if v is None:
+        return None
+    return tuple(float(x) if np.ndim(x) == 0 else _floats(x) for x in v)
+
+
+def statics_config_from_jax(cfg) -> StaticsConfig:
+    """The port's :class:`StaticsConfig` from any object with the JAX
+    ``StaticsConfig``'s fields ``rod``, ``stiffness``, ``kappa0``,
+    ``distributed_force`` and ``follower``."""
+    return StaticsConfig(rod=rod_config_from_jax(cfg.rod), stiffness=_floats(cfg.stiffness),
+                         kappa0=_floats(cfg.kappa0),
+                         distributed_force=_floats(cfg.distributed_force),
+                         follower=bool(cfg.follower))
+
+
 def grid_from_numpy(points, dn, dn_nn, dn_in, ginv, device=None) -> SpectralGrid:
-    """A :class:`SpectralGrid` on ``device`` from the JAX ``SpectralGrid``'s
-    f64 arrays (``dn_in`` may be ``(n-1,)`` or ``(n-1, 1)``)."""
+    """A :class:`SpectralGrid` on ``device`` (default: the card) from the JAX
+    ``SpectralGrid``'s f64 arrays (``dn_in`` may be ``(n-1,)`` or
+    ``(n-1, 1)``)."""
     device = canonical_device(device)
 
     def dev(a):

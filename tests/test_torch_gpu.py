@@ -1,4 +1,5 @@
-"""On-card checks of the CUDA kernels K1-K3 against their plain versions.
+"""On-card checks of the CUDA kernels against their plain versions: K1-K3
+narrow and wide, and the statics Newton that runs on them.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -10,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import rod
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
+    cosserat,
+    rod,
+)
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
     doubledouble as dd,
 )
@@ -70,3 +74,53 @@ def test_k3_kernel_matches_plain(cuda, n, na):
         assert torch.equal(torch.isnan(ja), torch.isnan(jb))
         assert torch.isnan(ja[3]).all() and not torch.isnan(ja[4:]).any()
         torch.testing.assert_close(ja, jb, atol=K3_TOL, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,na", [(34, 3), (65, 6), (66, 3), (256, 6), (513, 3)])
+def test_wide_kernels_match_plain(cuda, n, na):
+    """K1, K2 and K3 wide at the edges of the wide range: n-1 = 33, 64,
+    65, 255 and the cap 512; a ragged batch."""
+    b = B if n < 200 else 203
+    cfg = rod.RodConfig(n=n, na=na)
+    hi, lo = _qes(cuda, na, n)
+    hi, lo = hi[:b].contiguous(), lo[:b].contiguous()
+    hi[3], lo[3] = 0.0, 0.0
+    hi[3, 3] = 16.0             # rho = 8: NaN in the refined kernel and plain alike
+    ok = torch.ones(b, dtype=torch.bool, device=cuda)
+    ok[3] = False               # and no fixed point for the f32 Picard solves
+    wide = (rk.rod_shape_fused_wide, rk.picard_correction_fused_wide,
+            rfk.rod_shape_refined_kernel_wide)
+    before = [fn.launches for fn in wide]
+    q, r = rk.rod_shape_fused(hi, cfg)
+    qp, rp = rk.rod_shape_fused_plain(hi, cfg)
+    torch.testing.assert_close(q[ok], qp[ok], atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(r[ok], rp[ok], atol=F32_TOL, rtol=0)
+    rhs = torch.randn((b, n - 1, 4), device=cuda, generator=torch.Generator(cuda).manual_seed(n))
+    x = rk.picard_correction_fused(hi, rhs, cfg)
+    torch.testing.assert_close(x[ok], rk.picard_correction_plain(hi, rhs, cfg)[ok],
+                               atol=F32_TOL, rtol=0)
+    outs = rfk.rod_shape_refined_kernel(hi, lo, cfg)
+    plain = rfk.rod_shape_refined_plain(hi, lo, cfg)
+    assert [fn.launches for fn in wide] == [c + 1 for c in before]
+    for a, p in ((outs[:2], plain[:2]), (outs[2:], plain[2:])):
+        ja, jp = dd.join_f64(*a), dd.join_f64(*p)
+        assert torch.isnan(ja[3]).all() and not torch.isnan(ja[ok]).any()
+        torch.testing.assert_close(ja, jp, atol=K3_TOL, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_statics_batched_matches_per_sample(cuda, n):
+    """The batched Newton on the kernels against the per-sample Newton on
+    the torch path (tests/test_cosserat_statics.py:195-208)."""
+    cfg = cosserat.StaticsConfig(rod=rod.RodConfig(n=n))
+    loads = torch.tensor(np.random.default_rng(1).uniform(-0.4, 0.4, (64, 3)),
+                         dtype=torch.float32, device=cuda)
+    counts = (rk.rod_shape_fused.launches + rk.rod_shape_fused_wide.launches,
+              rk.picard_correction_fused.launches + rk.picard_correction_fused_wide.launches)
+    new = cosserat.solve_statics_batched(loads, cfg=cfg, tol=1e-5, max_iter=12, iters=16)
+    assert new.converged.all()
+    assert counts[0] < rk.rod_shape_fused.launches + rk.rod_shape_fused_wide.launches
+    assert counts[1] < (rk.picard_correction_fused.launches
+                        + rk.picard_correction_fused_wide.launches)
+    ref = cosserat.solve_statics(loads, cfg=cfg, tol=1e-5, max_iter=12, iters=16)
+    torch.testing.assert_close(new.qe, ref.qe, atol=2e-5, rtol=0)

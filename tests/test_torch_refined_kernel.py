@@ -120,7 +120,7 @@ def test_precision_routing():
 
 def test_auto_iters_match_jax():
     qe = 0.4 * oracle.demo_qe()
-    hi, lo = rod.split_strain(np.tile(qe, (4, 1)))
+    hi, lo = rod.split_strain(torch.tensor(np.tile(qe, (4, 1))))
     k = rod.auto_picard_iters((hi, lo), rod.RodConfig())
     assert k == jrod.auto_picard_iters((jnp.asarray(hi.numpy()), jnp.asarray(lo.numpy())),
                                        jrod.RodConfig())

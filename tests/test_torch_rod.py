@@ -13,12 +13,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.models import rod as jrod
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.utils import oracle
 import experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch as port
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import rod
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    collocation as coll,
+)
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
     refined_kernel as rfk,
     rod_kernel as rk,
@@ -30,25 +34,37 @@ F32_TOL = 5e-5     # fused / picard f32 gate (tests/test_pallas_kernel.py:43,91)
 REPO = Path(__file__).resolve().parents[1]
 
 
+@jax.jit
+def _jax_refs(hi, lo, qe6):
+    """The JAX references, compiled as one program."""
+    jref = jrod.rod_shape((hi, lo), method="refined")
+    jpic = jrod.rod_shape(hi, method="picard", iters=20)
+    jdense6 = jrod.rod_shape(qe6, cfg=jrod.RodConfig(na=6), method="dense")
+    return (jref.quaternions_dd, jref.positions_dd, jpic.quaternions, jpic.positions,
+            jdense6.quaternions, jdense6.positions)
+
+
+def _joined(pair):
+    return np.asarray(pair[0], np.float64) + np.asarray(pair[1], np.float64)
+
+
 @pytest.fixture(scope="module")
 def ref():
     rng = np.random.default_rng(31)
     qe64 = 0.8 * rng.standard_normal((B, 9))
     qe64[0] = oracle.demo_qe()
     hi, lo = jrod.split_strain(qe64)
-    jref = jrod.rod_shape((jnp.asarray(hi), jnp.asarray(lo)), method="refined")
-    jpic = jrod.rod_shape(jnp.asarray(hi), method="picard", iters=20)
     orc = [oracle.integrate_position(q) for q in qe64]
-    cfg6 = jrod.RodConfig(na=6)
     qe6 = 0.4 * rng.standard_normal((4, 18))
-    jdense6 = jrod.rod_shape(jnp.asarray(qe6), cfg=cfg6, method="dense")
+    jq, jr, pic_q, pic_r, d6_q, d6_r = _jax_refs(jnp.asarray(hi), jnp.asarray(lo),
+                                                 jnp.asarray(qe6))
     return dict(
         qe64=qe64, hi=torch.tensor(hi), lo=torch.tensor(lo),
-        jq=np.asarray(jref.quaternions_f64()), jr=np.asarray(jref.positions_f64()),
-        pic_q=np.asarray(jpic.quaternions), pic_r=np.asarray(jpic.positions),
+        jq=_joined(jq), jr=_joined(jr),
+        pic_q=np.asarray(pic_q), pic_r=np.asarray(pic_r),
         oq=np.stack([q.reshape(4, 15).T for q, _ in orc]),
         orr=np.stack([r for _, r in orc]),
-        qe6=qe6, d6_q=np.asarray(jdense6.quaternions), d6_r=np.asarray(jdense6.positions))
+        qe6=qe6, d6_q=np.asarray(d6_q), d6_r=np.asarray(d6_r))
 
 
 def _rel(x, y):
@@ -106,8 +122,8 @@ def test_six_dof_paths_match_jax_dense(ref):
 
 
 def test_quaternion_kinematics_and_demo_match_jax(ref):
-    assert torch.equal(rod.demo_qe(), torch.tensor(np.asarray(jrod.demo_qe())))
-    hi, lo = rod.split_strain(ref["qe64"])
+    assert torch.equal(rod.demo_qe(device="cpu"), torch.tensor(np.asarray(jrod.demo_qe())))
+    hi, lo = rod.split_strain(torch.tensor(ref["qe64"]))
     assert torch.equal(hi, ref["hi"]) and torch.equal(lo, ref["lo"])
     q = rod.quaternion_kinematics((hi, lo), method="refined")
     assert _rel(q.double(), ref["oq"]) < 1e-7      # one f32 word: ~3e-8
@@ -123,8 +139,8 @@ def test_fused_guards():
         rod.rod_shape(qes, method="fused", normalize_quaternions=True)
     with pytest.raises(NotImplementedError, match="K4"):
         rod.rod_shape(qes, method="fused", r_init=torch.ones(3))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        rod.rod_shape_refined_fused(torch.zeros((4, 9)), cfg=rod.RodConfig(n=64),
+    with pytest.raises(ValueError, match="512"):
+        rod.rod_shape_refined_fused(torch.zeros((4, 9)), cfg=rod.RodConfig(n=514),
                                     refine_steps=1)
 
 
@@ -140,6 +156,26 @@ def test_cpu_tensors_launch_no_kernel(ref):
     port.rod_shape_refined_fused(pair, refine_steps=2)
     port.rod_shape(ref["hi"], method="fused")
     assert [fn.launches for fn in counted] == [0, 0, 0]
+
+
+def test_default_device_is_the_card():
+    """Factories and non-tensor input go to the card; without CUDA they
+    raise and name the way to the CPU.  device='cpu' and CPU tensors run."""
+    on_card = (rod.demo_qe, lambda: coll.make_grid(16),
+               lambda: rod.rod_shape(np.zeros((2, 9)), method="picard"),
+               lambda: rod.split_strain(np.zeros(9)))
+    if torch.cuda.is_available():
+        for call in on_card:
+            call()
+        assert rod.demo_qe().device.type == "cuda"
+    else:
+        for call in on_card:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert rod.demo_qe(device="cpu").device.type == "cpu"
+    assert coll.make_grid(16, device="cpu").ginv.device.type == "cpu"
+    sol = rod.rod_shape(torch.zeros((2, 9)), method="picard")
+    assert sol.positions.device.type == "cpu"
 
 
 def _imported_modules(path):

@@ -50,8 +50,9 @@ def test_grid_constants_match_jax(n):
     """make_grid reproduces the JAX SpectralGrid, also when carried over
     from the JAX arrays by utils/convert.grid_from_numpy."""
     jg = jcoll.make_grid(n)
-    mine = coll.make_grid(n)
-    carried = convert.grid_from_numpy(jg.points, jg.dn, jg.dn_nn, jg.dn_in, jg.ginv)
+    mine = coll.make_grid(n, device="cpu")
+    carried = convert.grid_from_numpy(jg.points, jg.dn, jg.dn_nn, jg.dn_in, jg.ginv,
+                                      device="cpu")
     assert carried.n == mine.n == n and carried.length == mine.length == 1.0
     for name in ("points", "dn", "dn_nn", "dn_in", "ginv"):
         _close(getattr(mine, name), getattr(jg, name))
@@ -122,7 +123,7 @@ def test_quat_skew_apply_and_rod_tangent():
 
 def test_split_f64_matches_jax():
     a = np.random.default_rng(3).standard_normal((4, 5)) * 1e3
-    hi, lo = dd.split_f64(a)
+    hi, lo = dd.split_f64(torch.tensor(a))
     jhi, jlo = jdd.split_f64(a)
     _close(hi, jhi, tol=0.0)
     _close(lo, jlo, tol=0.0)
