@@ -5,10 +5,11 @@ which raises on failure (exit code != 0, no result lines):
 
 1. environment: versions, the card, its power limit, nvcc and triton;
 2. build the CUDA kernels from ``csrc/``, one nvcc per source, all at once:
-   K1-K3 narrow (n-1 <= 32) and K1-K3 wide (32 < n-1 <= 512);
+   K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512);
 3. each kernel against its plain PyTorch version on the card: narrow at
    N in {8, 16, 33}, wide at n-1 in {33, 63, 64, 65, 128, 255, 512} and a
-   ragged batch, na in {3, 6};
+   ragged batch, na in {3, 6}; K4 and K5 with random unit q0 and
+   r0 ~ U(-1, 1) per rod;
 4. the paths at real size, each with the launch counts set to 0 just before
    it and read just after, NaN checks, and the port's f64 dense solve on the
    card as reference: the N=16 slice at B=131072 (``rod_shape_refined_fused``
@@ -16,13 +17,16 @@ which raises on failure (exit code != 0, no result lines):
    refined n=64 (B=32768) and n=256 (B=8192) on K3 wide, staged n=64 on
    K2 wide, Reissner na=6 n=64 (B=8192), fused n=64 on K1 wide; the statics
    Newton ``solve_statics_batched`` at N=16 (B=16384) and n=64 (B=4096)
-   against the per-sample ``solve_statics`` on 64 loads;
+   against the per-sample ``solve_statics`` on 64 loads; the multi-segment
+   paths: ``rod_shape(method='fused')`` with per-rod inits on K4 (B=131072),
+   the chains 3 x n=16 (B=131072) and 2 x n=64 (B=32768) on K4/K4 wide and
+   K5/K5 wide against the f64 dense chain, and the segmented statics Newton
+   (B=8192; dd residual B=1024) against the per-sample Newton on the CPU;
 5. CUDA-event timings of each kernel beside its plain version, its bound and
    (K2) the batched ``torch.linalg.solve`` of the same systems, of each path
-   as a whole call, and of ``gauss_jordan_solve`` beside the library solve
-   that the Newton step calls; a torch.profiler breakdown (device busy,
-   idle share, top kernels) of the N=16 headline, refined n=256 and
-   statics N=16 calls.
+   as a whole call; a torch.profiler breakdown (device busy,
+   idle share, top kernels) of the N=16 headline, refined n=256, statics
+   N=16, refined 3 x n=16 chain and segmented statics calls.
 
 The last three lines of standard output are a JSON line with the kernels,
 the card's name and power limit as nvidia-smi prints them, and the JSON
@@ -42,12 +46,13 @@ import torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     cosserat,
     rod,
+    segment_statics,
+    segments,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
     collocation as coll,
     doubledouble as dd,
     lie,
-    smallsolve,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
     build,
@@ -63,10 +68,12 @@ PKG = "experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_tor
 JAX_PKG = "experimental_gpu_programming_for_a_spectral_numerical_integration_tpu"
 B_REAL = 131072
 B_CHECK = 4096
-F32_TOL = 5e-5     # K1/K2 vs plain: the 'high' gate of tests/test_pallas_kernel.py:26,43
-K3_TOL = 1e-9      # K3 vs plain on the joined f64 outputs
+F32_TOL = 5e-5     # K1/K2/K4 vs plain: the 'high' gate of tests/test_pallas_kernel.py:26,43
+K3_TOL = 1e-9      # K3/K5 vs plain on the joined f64 outputs (tests/test_refined_kernel.py:27)
+CHAIN_TOL = 2e-4   # fused chain vs the f64 dense chain (tests/test_segments.py:196-199)
 GATE = 1e-8        # refined paths vs the f64 dense solve, relative L-inf
 QE_TOL = 2e-5      # batched vs per-sample statics Newton (tests/test_cosserat_statics.py:207)
+DD_RES_ERR = 1e-11  # the K5 chain's residual vs the f64 dense residual, absolute
 GOLDEN_Q = (0.799770, 0.0, 0.600307, 0.0)   # demo tip, SURVEY.md section 4
 GOLDEN_R = (0.562673, 0.0, -0.745914)
 GOLDEN_TOL = 1e-6
@@ -98,6 +105,21 @@ KERNELS = {
                 wrapper=rfk.rod_shape_refined_kernel_wide,
                 source=f"{PKG}/csrc/refined_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:540; "
+                         f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195"),
+    "K4": dict(name="K4 rod_shape_fused_bc", wrapper=rk.rod_shape_fused_bc,
+               source=f"{PKG}/csrc/rod_kernel.cu",
+               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:508"),
+    "K4w": dict(name="K4 wide rod_shape_fused_bc_wide", wrapper=rk.rod_shape_fused_bc_wide,
+                source=f"{PKG}/csrc/rod_wide_kernel.cu",
+                replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:738; "
+                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997"),
+    "K5": dict(name="K5 rod_shape_refined_kernel_bc", wrapper=rfk.rod_shape_refined_kernel_bc,
+               source=f"{PKG}/csrc/refined_kernel.cu",
+               replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:792"),
+    "K5w": dict(name="K5 wide rod_shape_refined_kernel_bc_wide",
+                wrapper=rfk.rod_shape_refined_kernel_bc_wide,
+                source=f"{PKG}/csrc/refined_wide_kernel.cu",
+                replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:635; "
                          f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195"),
 }
 
@@ -166,16 +188,26 @@ def compare_k3(errors: dict, key: str, outs, plain, what: str) -> None:
     record(errors, key, max(max_abs(kq, pq), max_abs(kr, pr)), K3_TOL, what)
 
 
+def random_inits(rng, batch: int, dev):
+    """Per-rod boundary values as f32 pairs: unit q0, r0 ~ U(-1, 1)."""
+    q0 = rng.standard_normal((batch, 4))
+    q0 /= np.linalg.norm(q0, axis=-1, keepdims=True)
+    return (dd.split_f64(torch.tensor(q0, device=dev)),
+            dd.split_f64(torch.tensor(rng.uniform(-1.0, 1.0, (batch, 3)), device=dev)))
+
+
 def compare_kernels(dev, errors: dict, rng, n: int, na: int, batch: int) -> None:
-    """K1, K2 and K3 (narrow or wide, as the grid routes them) against
-    their plain versions on one batch; each wrapper must launch once."""
+    """K1-K5 (narrow or wide, as the grid routes them) against their plain
+    versions on one batch; each wrapper must launch once."""
     cfg = rod.RodConfig(n=n, na=na)
     wide = rk.is_wide(n - 1)
-    keys = ("K1w", "K2w", "K3w") if wide else ("K1", "K2", "K3")
+    keys = ("K1w", "K2w", "K3w", "K4w", "K5w") if wide else ("K1", "K2", "K3", "K4", "K5")
     qe64 = torch.tensor(0.8 * rng.standard_normal((batch, na * 3)), device=dev)
     hi, lo = dd.split_f64(qe64)
     rhs = torch.tensor(0.1 * rng.standard_normal((batch, n - 1, 4)), dtype=torch.float32,
                        device=dev)
+    # a generator of their own, so K1-K3 see the same strains as before K4/K5
+    (q0h, q0l), (r0h, r0l) = random_inits(np.random.default_rng((n, na, batch)), batch, dev)
     before = {k: KERNELS[k]["wrapper"].launches for k in keys}
     tag = f"n-1={n - 1} na={na} B={batch}"
 
@@ -190,6 +222,15 @@ def compare_kernels(dev, errors: dict, rng, n: int, na: int, batch: int) -> None
     outs = rfk.rod_shape_refined_kernel(hi, lo, cfg)
     torch.cuda.synchronize()
     compare_k3(errors, keys[2], outs, rfk.rod_shape_refined_plain(hi, lo, cfg), f"{keys[2]} {tag}")
+    q, r = rk.rod_shape_fused_bc(hi, q0h, r0h, cfg)
+    torch.cuda.synchronize()
+    qp, rp = rk.rod_shape_fused_bc_plain(hi, q0h, r0h, cfg)
+    record(errors, keys[3], max(max_abs(q, qp), max_abs(r, rp)), F32_TOL, f"{keys[3]} {tag}")
+    outs = rfk.rod_shape_refined_kernel_bc(hi, q0h, r0h, lo, q0l, r0l, cfg=cfg)
+    torch.cuda.synchronize()
+    compare_k3(errors, keys[4], outs,
+               rfk.rod_shape_refined_bc_plain(hi, q0h, r0h, lo, q0l, r0l, cfg=cfg),
+               f"{keys[4]} {tag}")
     for k in keys:
         if KERNELS[k]["wrapper"].launches != before[k] + 1:
             raise AssertionError(f"{k}: launch counter did not move ({tag})")
@@ -365,6 +406,161 @@ def phase_wide_paths(dev: torch.device, launches: dict) -> dict:
     return results
 
 
+SEG16, SEG64 = segments.uniform_segments(3, n=16), segments.uniform_segments(2, n=64)
+SEG_STATICS = segment_statics.SegmentedStaticsConfig(      # bench.py:230-242
+    rods=segments.uniform_segments(2, n=16), stiffness=((1.0, 2.0, 2.0), (1.0, 1.0, 1.0)))
+SEG_NEWTON = dict(tol=1e-5, max_iter=10, iters=16, jac_iters=8)
+SEG_DD_NEWTON = dict(tol=1e-9, max_iter=14, iters=20, jac_iters=10, dd_residual=True,
+                     dd_iters=22)
+B_SEG64, B_SEG_NEWTON, B_SEG_DD = 32768, 8192, 1024   # bench.py:134-160,233-234
+
+
+def segment_inputs(dev):
+    """The multi-segment paths' inputs: strains 0.8 N(0,1) per segment
+    (seed 3) for 3 x n=16 (B=131072) and 2 x n=64 (B=32768); one strain per
+    rod with a random unit q0 and r0 ~ U(-1, 1) for the single fused solve;
+    statics loads U(-0.4, 0.4) (seed 1, as the wide paths')."""
+    rng = np.random.default_rng(3)
+    qe16 = torch.tensor(0.8 * rng.standard_normal((B_REAL, 3, 9)), device=dev)
+    qe64 = torch.tensor(0.8 * rng.standard_normal((B_SEG64, 2, 9)), device=dev)
+    qe_bc = torch.tensor(0.8 * rng.standard_normal((B_REAL, 9)), device=dev)
+    (q0, _), (r0, _) = random_inits(rng, B_REAL, dev)
+    loads = wide_inputs(dev)[2]
+    return dict(qe16=qe16, qe64=qe64, qe_bc=qe_bc, q0=q0, r0=r0, loads=loads,
+                dd16=rod.split_strain(qe16), dd64=rod.split_strain(qe64))
+
+
+def segment_paths(inp):
+    """Each multi-segment path as one call: (callable, kernels it must launch)."""
+    return {
+        "fused N=16 with inits": (lambda: rod.rod_shape(
+            inp["qe_bc"].float(), q_init=inp["q0"], r_init=inp["r0"], method="fused"),
+            ("K4",)),
+        "chain 3 x n=16 fused": (lambda: segments.segmented_rod_shape(
+            inp["qe16"].float(), SEG16, method="fused", iters=20), ("K4",)),
+        "chain 3 x n=16 refined_fused": (lambda: segments.segmented_rod_shape(
+            inp["dd16"], SEG16, method="refined_fused"), ("K5",)),
+        "chain 2 x n=64 fused": (lambda: segments.segmented_rod_shape(
+            inp["qe64"].float(), SEG64, method="fused", iters=22), ("K4w",)),
+        "chain 2 x n=64 refined_fused": (lambda: segments.segmented_rod_shape(
+            inp["dd64"], SEG64, method="refined_fused", iters=22, corr_iters=22), ("K5w",)),
+        "segmented statics": (lambda: segment_statics.solve_segmented_statics_batched(
+            inp["loads"][:B_SEG_NEWTON], cfg=SEG_STATICS, **SEG_NEWTON), ("K4", "K2")),
+        "segmented dd statics": (lambda: segment_statics.solve_segmented_statics_batched(
+            inp["loads"][:B_SEG_DD], cfg=SEG_STATICS, **SEG_DD_NEWTON), ("K4", "K2", "K5")),
+    }
+
+
+def phase_segment_paths(dev, launches: dict) -> None:
+    inp = segment_inputs(dev)
+    results = {}
+    for what, (fn, needs) in segment_paths(inp).items():
+        results[what], counts = counted(what, fn, needs)
+        add_counts(launches, counts)
+        if what.startswith("segmented"):
+            evals = int(results[what].iterations) + 1    # res_jac calls: one per step + 1
+            print(f"    {int(results[what].iterations)} Newton steps; launches per "
+                  f"residual-and-Jacobian evaluation: "
+                  f"{ {k: v / evals for k, v in counts.items()} }")
+
+    sample = 4096
+    sol = results["fused N=16 with inits"]
+    check_outputs("fused N=16 with inits", sol.quaternions, sol.positions, (B_REAL, 15))
+    ref = rod.rod_shape(inp["qe_bc"][:sample], q_init=inp["q0"][:sample].double(),
+                        r_init=inp["r0"][:sample].double(), method="dense")
+    err = max(max_abs(sol.quaternions[:sample], ref.quaternions),
+              max_abs(sol.positions[:sample], ref.positions))
+    print(f"  fused N=16 with inits: max abs {err:.3e} vs f64 dense with the same inits over "
+          f"{sample} rods (bound {F32_TOL:.0e})")
+    if not err <= F32_TOL:
+        raise AssertionError("fused N=16 with inits: outside the f32 gate of the dense solve")
+
+    for cfg, key, sample in ((SEG16, "qe16", 4096), (SEG64, "qe64", 1024)):
+        tag = f"{cfg.num_segments} x n={cfg.segments[0].n}"
+        ref = segments.segmented_rod_shape(inp[key][:sample], cfg, method="dense")
+        fused = results[f"chain {tag} fused"]
+        check_outputs(f"chain {tag} fused", fused.quaternions[-1], fused.positions[-1],
+                      (inp[key].shape[0], cfg.segments[0].n - 1))
+        err = max(max_abs(fused.junction_quaternions[:sample], ref.junction_quaternions),
+                  max_abs(fused.junction_positions[:sample], ref.junction_positions))
+        print(f"  chain {tag} fused: max abs {err:.3e} at every junction vs the f64 dense "
+              f"chain over {sample} rods (bound {CHAIN_TOL:.0e})")
+        refined = results[f"chain {tag} refined_fused"]
+        jq, jr = (dd.join_f64(*pair) for pair in refined.junction_dd)
+        check_outputs(f"chain {tag} refined_fused", jq, jr, (inp[key].shape[0], cfg.num_segments))
+        rel = max(rel_linf(jq[:sample], ref.junction_quaternions),
+                  rel_linf(jr[:sample], ref.junction_positions))
+        print(f"  chain {tag} refined_fused: rel L-inf {rel:.3e} at every junction vs the f64 "
+              f"dense chain over {sample} rods (bound {GATE:.0e})")
+        if not (err <= CHAIN_TOL and rel <= GATE):
+            raise AssertionError(f"chain {tag}: outside its gate of the f64 dense chain")
+
+    what, picks = "segmented statics", 8
+    sol = results[what]
+    if sol.qe.shape != (B_SEG_NEWTON, 2, 9) or not bool(sol.converged.all()):
+        raise AssertionError(f"{what}: {int((~sol.converged).sum())} loads did not converge")
+    idx = torch.linspace(0, B_SEG_NEWTON - 1, picks, device=dev).long()
+    ref = segment_statics.solve_segmented_statics(inp["loads"][idx].double().cpu(),
+                                                  cfg=SEG_STATICS, tol=1e-11)
+    err = max_abs(sol.qe[idx].double().cpu(), ref.qe)
+    print(f"  {what}: all converged, max residual {float(sol.residual_norm.max()):.2e}; "
+          f"|qe - per-sample f64 Newton| {err:.2e} over {picks} loads (bound {QE_TOL:.0e})")
+    if not (bool(ref.converged.all()) and err <= QE_TOL):
+        raise AssertionError(f"{what}: outside {QE_TOL:.0e} of solve_segmented_statics")
+    check_dd_newton(results["segmented dd statics"], inp["loads"][:B_SEG_DD], dev)
+
+
+def check_dd_newton(sol, loads, dev, picks: int = 16) -> None:
+    """What the dd Newton's tolerance bounds.  Every load: the K5 chain's
+    residual agrees with the f64 dense residual at the solution within
+    DD_RES_ERR, so the dense residual is <= tol + DD_RES_ERR.  ``picks``
+    loads: the strains lie within the first-order bound
+    2 (tol + DD_RES_ERR + |res(ref)|) / sigma_min(J) of the per-sample f64
+    Newton's, with J the dense residual's Jacobian there (sigma_min ~ 0.1
+    here, so tol = 1e-9 allows ~2e-8)."""
+    what, tol = "segmented dd statics", SEG_DD_NEWTON["tol"]
+    b, s_count, nq = sol.qe.shape
+    if sol.qe_lo is None or (b, s_count, nq) != (B_SEG_DD, 2, 9) or not bool(sol.converged.all()):
+        raise AssertionError(f"{what}: {int((~sol.converged).sum())} loads did not converge")
+    qe = dd.join_f64(sol.qe, sol.qe_lo)
+    zero = torch.zeros(3, dtype=torch.float64, device=dev)
+    dense = segment_statics.segmented_equilibrium_residual(
+        qe, loads.double(), zero, SEG_STATICS, method="dense").reshape(b, -1)
+    res_dd = segment_statics.segmented_equilibrium_residual_dd(
+        (sol.qe, sol.qe_lo), loads, zero.float(), SEG_STATICS,
+        iters=SEG_DD_NEWTON["dd_iters"]).reshape(b, -1).double()
+    dd_err = float((res_dd - dense).abs().max())
+    dense_norm = torch.linalg.vector_norm(dense, dim=-1)
+    print(f"  {what}: all converged, max residual {float(sol.residual_norm.max()):.3e}; "
+          f"|dd residual - f64 dense residual| {dd_err:.3e} (bound {DD_RES_ERR:.0e}), max "
+          f"f64 dense residual {float(dense_norm.max()):.3e} (bound tol + {DD_RES_ERR:.0e}) "
+          f"over all {b} loads")
+    if not (dd_err <= DD_RES_ERR and float(dense_norm.max()) <= tol + DD_RES_ERR):
+        raise AssertionError(f"{what}: the f64 dense residual is outside the tolerance")
+
+    idx = torch.linspace(0, b - 1, picks, device=dev).long()
+    tf = loads[idx].double().cpu()
+    ref = segment_statics.solve_segmented_statics(tf, cfg=SEG_STATICS, tol=1e-12, max_iter=40,
+                                                  method="dense")
+    q_ref = ref.qe.reshape(picks, -1)
+
+    def residual(q):
+        return segment_statics.segmented_equilibrium_residual(
+            q.reshape(picks, s_count, nq), tf, zero.cpu(), SEG_STATICS,
+            method="dense").reshape(picks, -1)
+
+    jac = torch.func.jacfwd(lambda d: residual(q_ref + d))(q_ref.new_zeros(s_count * nq))
+    sigma_min = torch.linalg.svdvals(jac)[:, -1]
+    limit = 2 * (tol + DD_RES_ERR + ref.residual_norm) / sigma_min
+    err = (qe[idx].reshape(picks, -1).cpu() - q_ref).abs().max(dim=-1).values
+    print(f"    |qe - per-sample f64 Newton| max {float(err.max()):.3e} over {picks} loads; "
+          f"sigma_min(J) {float(sigma_min.min()):.4f}..{float(sigma_min.max()):.4f}; "
+          f"largest share of the first-order bound {float((err / limit).max()):.3e} "
+          f"(bound >= {float(limit.min()):.3e})")
+    if not (bool(ref.converged.all()) and bool((err <= limit).all())):
+        raise AssertionError(f"{what}: strains outside what the tolerance bounds")
+
+
 def picard_fma(n1: int, iters: int) -> int:
     """FP32 FMAs of ``iters`` Picard steps for one rod: G (4 columns) plus
     the 12-FMA A(K/2) action per point."""
@@ -393,6 +589,21 @@ def k3_bound(b, n1, na, ne, iters, corr_iters):
     f32 = b * (picard_fma(n1, iters) + picard_fma(n1, corr_iters) + 4 * n1 * n1)
     f64 = b * (na * ne * n1 + 4 * n1 * n1 + 12 * n1 + 3 * n1 * n1)
     return bound(f32, f64, 4 * b * (2 * na * ne + 14 * n1))
+
+
+def k4_bound(b, n1, na, ne, iters):
+    """K1's work plus the boundary outer products gvec ⊗ q0 and gvec ⊗ r0,
+    and 7 more floats in per rod."""
+    return bound(b * (na * ne * n1 + picard_fma(n1, iters) + 3 * n1 * n1 + 7 * n1), 0,
+                 4 * b * (na * ne + 7 + 7 * n1))
+
+
+def k5_bound(b, n1, na, ne, iters, corr_iters):
+    """K3's work plus the outer products gvec32 ⊗ q0_hi (FP32), dn_in ⊗ q0
+    and gvec64 ⊗ r0 (FP64), and the boundary pairs (14 floats) in per rod."""
+    f32 = b * (picard_fma(n1, iters) + picard_fma(n1, corr_iters) + 4 * n1 * n1 + 4 * n1)
+    f64 = b * (na * ne * n1 + 4 * n1 * n1 + 12 * n1 + 3 * n1 * n1 + 7 * n1)
+    return bound(f32, f64, 4 * b * (2 * na * ne + 14 + 14 * n1))
 
 
 def collocation_system(cfg: rod.RodConfig, qes: torch.Tensor, rhs: torch.Tensor):
@@ -432,6 +643,9 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
     it256 = rod.auto_picard_iters((h256, l256), CFG256, tol=1e-5)
     rhs64 = torch.zeros((32768, 63, 4), dtype=torch.float32, device=dev)
     rhs64[..., 0] = -CFG64.grid(dev).dn_in.float()
+    # K4/K5 at their chains' shapes: per-rod unit q0 and r0 ~ U(-1, 1)
+    (q0h, q0l), (r0h, r0l) = random_inits(rng, B_REAL, dev)
+    q0h64, q0l64, r0h64, r0l64 = (v[:32768] for v in (q0h, q0l, r0h, r0l))
 
     runs = {   # key: (kernel, plain, batch, shape note, (bound ms, bound_by), library call)
         "K1": (lambda: rk.rod_shape_fused(hi, cfg), lambda: rk.rod_shape_fused_plain(hi, cfg),
@@ -451,12 +665,26 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
         "K3w": (lambda: rfk.rod_shape_refined_kernel(h256, l256, CFG256, it256, it256),
                 lambda: rfk.rod_shape_refined_plain(h256, l256, CFG256, it256, it256), 8192,
                 f"n=256 iters {it256}/{it256}", k3_bound(8192, 255, 3, 3, it256, it256), None),
+        "K4": (lambda: rk.rod_shape_fused_bc(hi, q0h, r0h, cfg),
+               lambda: rk.rod_shape_fused_bc_plain(hi, q0h, r0h, cfg), B_REAL,
+               "N=16 iters 20", k4_bound(B_REAL, 15, 3, 3, 20), None),
+        "K4w": (lambda: rk.rod_shape_fused_bc(h64, q0h64, r0h64, CFG64, iters=22),
+                lambda: rk.rod_shape_fused_bc_plain(h64, q0h64, r0h64, CFG64, iters=22), 32768,
+                "n=64 iters 22", k4_bound(32768, 63, 3, 3, 22), None),
+        "K5": (lambda: rfk.rod_shape_refined_kernel_bc(hi, q0h, r0h, lo, q0l, r0l, cfg=cfg),
+               lambda: rfk.rod_shape_refined_bc_plain(hi, q0h, r0h, lo, q0l, r0l, cfg=cfg),
+               B_REAL, "N=16 iters 20/20", k5_bound(B_REAL, 15, 3, 3, 20, 20), None),
+        "K5w": (lambda: rfk.rod_shape_refined_kernel_bc(h64, q0h64, r0h64, l64, q0l64, r0l64,
+                                                        cfg=CFG64, iters=22, corr_iters=22),
+                lambda: rfk.rod_shape_refined_bc_plain(h64, q0h64, r0h64, l64, q0l64, r0l64,
+                                                       cfg=CFG64, iters=22, corr_iters=22),
+                32768, "n=64 iters 22/22", k5_bound(32768, 63, 3, 3, 22, 22), None),
     }
     for key, (kernel, plain, batch, shape, (bound_ms, bound_by), library) in runs.items():
         out, ref = kernel(), plain()
-        if key.startswith("K3"):
+        if key.startswith(("K3", "K5")):
             compare_k3(errors, key, out, ref, f"{key} {shape} B={batch}")
-        elif key.startswith("K1"):
+        elif key.startswith(("K1", "K4")):
             record(errors, key, max(max_abs(out[0], ref[0]), max_abs(out[1], ref[1])), F32_TOL,
                    f"{key} {shape} B={batch}")
         else:
@@ -499,6 +727,16 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
         k, _ = timed(card, what, kernel, plain, batch)
         print(f"  {what}: bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / k:.1%} "
               "of it")
+    # K2 wide at n=256 beside its library call: the full (8192, 1020, 1020)
+    # f32 systems take 34 GB, so both run at B=1024.
+    h1k, rhs1k = h256[:1024].contiguous(), rhs256[:1024].contiguous()
+    k = cuda_time_ms(lambda: rk.picard_correction_fused(h1k, rhs1k, CFG256))
+    a, b = collocation_system(CFG256, h1k, rhs1k)
+    lib_ms = cuda_time_ms(torch.linalg.solve, a, b, warmup=1, reps=3)
+    print(f"  K2w n=256 iters 20 B=1024: kernel {k:.4f} ms; batched torch.linalg.solve of the "
+          f"assembled {tuple(a.shape)} f32 systems {lib_ms:.4f} ms [{card}]")
+    del a, b
+    torch.cuda.empty_cache()
 
     def headline_plain():
         if rod.strain_rho((hi, lo), cfg) > 5.0:     # the call's validity check
@@ -512,7 +750,7 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
 
 def phase_path_timing(dev: torch.device, card: str) -> None:
     """Each wide path as a whole call (CUDA events around the call, host
-    syncs included), and ``gauss_jordan_solve`` beside the library solve."""
+    syncs included), and a profiler breakdown of three of them."""
     qe64, qe6, loads = wide_inputs(dev)
     batches = {"refined n=64 single kernel": 32768, "refined n=256 single kernel": 8192,
                "refined n=64 staged": 32768, "Reissner na=6 n=64": 8192, "fused n=64": 32768,
@@ -535,15 +773,25 @@ def phase_path_timing(dev: torch.device, card: str) -> None:
               f"device events per call [{card}]")
         for name, ms, count in prof["top"]:
             print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
-    rng = np.random.default_rng(2)
-    a = torch.tensor(3.0 * np.eye(9) + 0.3 * rng.standard_normal((16384, 9, 9)),
-                     dtype=torch.float32, device=dev)
-    b = torch.tensor(rng.standard_normal((16384, 9)), dtype=torch.float32, device=dev)
-    gj = cuda_time_ms(smallsolve.gauss_jordan_solve, a, b)
-    lib = cuda_time_ms(lambda: torch.linalg.solve(a, b.unsqueeze(-1)))
-    err = max_abs(smallsolve.gauss_jordan_solve(a, b), torch.linalg.solve(a, b.unsqueeze(-1))[..., 0])
-    print(f"  gauss_jordan_solve (16384, 9, 9) f32: {gj:.4f} ms; torch.linalg.solve "
-          f"{lib:.4f} ms; max |difference| {err:.2e} [{card}]")
+
+
+def phase_segment_timing(dev: torch.device, card: str) -> None:
+    """Each multi-segment path as a whole call, and a profiler breakdown of
+    the refined 3 x n=16 chain and the segmented Newton."""
+    paths = segment_paths(segment_inputs(dev))
+    batch = {"segmented statics": B_SEG_NEWTON, "segmented dd statics": B_SEG_DD}
+    for what, (fn, _) in paths.items():
+        slow = "statics" in what
+        ms = cuda_time_ms(fn, warmup=1 if slow else 3, reps=3 if slow else 10)
+        b = batch.get(what, B_SEG64 if "n=64" in what else B_REAL)
+        print(f"  {what} B={b}: {ms:.4f} ms per call -> {b / ms * 1e3:.4g} solves/s [{card}]")
+    for what, reps in (("chain 3 x n=16 refined_fused", 10), ("segmented statics", 3)):
+        prof = device_breakdown(paths[what][0], warmup=1, reps=reps)
+        print(f"  profile {what}: host {prof['host_ms']:.4f} ms per call, device busy "
+              f"{prof['device_ms']:.4f} ms, idle {prof['idle']:.1%}, {prof['events']:.0f} "
+              f"device events per call [{card}]")
+        for name, ms, count in prof["top"]:
+            print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
 
 
 def main() -> None:
@@ -560,10 +808,12 @@ def main() -> None:
     launches = {}
     phase_narrow_slice(dev, launches)
     phase_wide_paths(dev, launches)
+    phase_segment_paths(dev, launches)
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)
     phase_path_timing(dev, card)
+    phase_segment_timing(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": spec["name"], "route": "cuda", "source": spec["source"],

@@ -3,9 +3,9 @@
 The JAX package ``experimental_gpu_programming_for_a_spectral_numerical_integration_tpu``
 beside this one is the reference.  This package ports its main path, the
 batched rod-shape solve ``qe (B, na*ne) -> (Q (B, n-1, 4), r (B, n-1, 3))``
-on grids up to n-1 = 512, and the batched statics Newton built on it, with
-hand-written CUDA kernels for NVIDIA Hopper (``csrc/``) in place of the
-Pallas TPU kernels.  It runs on the card unless the caller passes CPU
+on grids up to n-1 = 512, the batched statics Newton built on it, and the
+multi-segment rod chains and their statics Newton, with hand-written CUDA
+kernels for NVIDIA Hopper (``csrc/``) in place of the Pallas TPU kernels.  It runs on the card unless the caller passes CPU
 tensors or ``device='cpu'`` (``ops/device.py``).  It imports torch and
 numpy, never jax.
 
@@ -41,6 +41,21 @@ from .models.rod import (  # noqa: E402
     split_strain,
 )
 
+from .models.segment_statics import (  # noqa: E402
+    SegmentedStaticsConfig,
+    SegmentedStaticsSolution,
+    segmented_equilibrium_residual,
+    solve_segmented_statics,
+    solve_segmented_statics_batched,
+)
+from .models.segments import (  # noqa: E402
+    SegmentedRodConfig,
+    SegmentedSolution,
+    project_global_strain,
+    segmented_rod_shape,
+    uniform_segments,
+)
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -59,4 +74,14 @@ __all__ = [
     "equilibrium_residual",
     "solve_statics",
     "solve_statics_batched",
+    "SegmentedRodConfig",
+    "SegmentedSolution",
+    "uniform_segments",
+    "project_global_strain",
+    "segmented_rod_shape",
+    "SegmentedStaticsConfig",
+    "SegmentedStaticsSolution",
+    "segmented_equilibrium_residual",
+    "solve_segmented_statics",
+    "solve_segmented_statics_batched",
 ]

@@ -1,7 +1,10 @@
-// K3: the whole refined rod solve in one kernel.
+// K3 and K5: the whole refined rod solve in one kernel, with the demo boundary
+// values (K3) or per-rod ones (K5).
 //
-// Replaces the JAX package's Pallas TPU kernel ops/pallas/refined_kernel.py
-// rod_shape_refined_kernel (body _kernel), the headline path:
+// Replaces the JAX package's Pallas TPU kernels ops/pallas/refined_kernel.py
+// rod_shape_refined_kernel (body _kernel, pallas_call :890), the headline path,
+// and rod_shape_refined_kernel_bc (the same body with bc=True, pallas_call
+// :792), the multi-segment accuracy chain:
 //   1. K = Phi (qe_hi + qe_lo) in FP64;
 //   2. f32 Picard base solve s (K/2 rounded to f32), as K1;
 //   3. residual rhs - Dn_NN s + 1/2 A(K) s in FP64, rhs = -dn_in ⊗ (1,0,0,0);
@@ -10,9 +13,15 @@
 //      b = R(x) e1 (R(x)(e1 + gamma) for na = 6) and FP64 position r = G b;
 //   6. x and r split into f32 (hi, lo) pairs; a rod with
 //      max_i |K_i / 2|^2 > (check_rho / L)^2 is NaN in all four outputs.
+// K5 takes q0 = q0_hi + q0_lo (B,4) and r0 = r0_hi + r0_lo (B,3), f32 pairs:
+// the base solve starts from gvec32 ⊗ q0_hi (as the TPU body does), the FP64
+// residual uses rhs = -dn_in ⊗ (q0_hi + q0_lo), and the FP64 position is
+// G b + gvec64 ⊗ (r0_hi + r0_lo) with gvec64 = -G dn_in, so a junction state
+// never drops to f32.  The rho limit is per segment: (check_rho / L_segment)^2.
 // The TPU kernel needed int8 Ozaki planes and double-word EFTs for steps 3
-// and 5, and NaN-poisoned states outside the int8 windows (|s| >= 3.96,
-// |b| >= 7.92); native FP64 removes both.
+// and 5 (and dd outer products for the boundary terms), and NaN-poisoned
+// states outside the int8 windows (|s| >= 3.96, |b| >= 7.92); native FP64
+// removes all of them.
 //
 // Bound on an H100: two f32 Picard loops (~43,000 FP32 FMAs per rod at
 // N=16) plus ~1,600 FP64 FMAs against ~72 bytes in and 840 bytes out: FMA
@@ -20,27 +29,29 @@
 // memory, transposed so that lane i reading column j touches consecutive
 // doubles.
 //
-// C interface as rod_kernel.cu; qes_lo may be NULL (zero low word) and
-// rho2_limit < 0 disables the sentinel.
+// C interface as rod_kernel.cu; qes_lo, q0_lo and r0_lo may be NULL (zero low
+// words) and rho2_limit < 0 disables the sentinel.
+#include "refined_bc.cuh"
 #include "rod_common.cuh"
 
 namespace {
 
 using namespace rod;
+using namespace refined_bc;
 
 __device__ __forceinline__ void split(double v, float& hi, float& lo) {
     hi = __double2float_rn(v);
     lo = __double2float_rn(v - (double)hi);
 }
 
-template <int P, int NA>
+template <int P, int NA, bool BC>
 __global__ void __launch_bounds__(kThreads)
 rod_shape_refined_kernel(const float* __restrict__ qes_hi, const float* __restrict__ qes_lo,
                          int batch, int npts, int ne, const float* __restrict__ g32,
                          const float* __restrict__ gvec32, const double* __restrict__ g64,
                          const double* __restrict__ dn64, const double* __restrict__ ptab64,
-                         const double* __restrict__ din64, int iters, int corr_iters,
-                         float rho2_limit, float* __restrict__ q_hi,
+                         const double* __restrict__ din64, Boundary bc, int iters,
+                         int corr_iters, float rho2_limit, float* __restrict__ q_hi,
                          float* __restrict__ q_lo, float* __restrict__ r_hi,
                          float* __restrict__ r_lo) {
     __shared__ double gt64[P * P];   // gt64[j*P + i] = G[i][j]
@@ -82,9 +93,20 @@ rod_shape_refined_kernel(const float* __restrict__ qes_hi, const float* __restri
     const double kh0 = 0.5 * k[0], kh1 = 0.5 * k[1], kh2 = 0.5 * k[2];
     const float f0 = (float)kh0, f1 = (float)kh1, f2 = (float)kh2;
 
+    // K5's boundary values are read where they are used, to keep them out of
+    // the register peak of the Picard loops: q0_hi here (the f32 base solve
+    // starts from gvec32 ⊗ q0_hi), q0 for the residual, r0 for the position.
+    float4 g_rhs = make_float4(gvec32[lane], 0.f, 0.f, 0.f);
+    if constexpr (BC) {
+        if (live) {
+            const float4 qh = reinterpret_cast<const float4*>(bc.q0_hi)[rod];
+            const float gv = gvec32[lane];
+            g_rhs = make_float4(gv * qh.x, gv * qh.y, gv * qh.z, gv * qh.w);
+        }
+    }
+
     // 2. f32 base solve.
-    const float4 s = picard<P>(g, slot, lane, f0, f1, f2,
-                               make_float4(gvec32[lane], 0.f, 0.f, 0.f), iters);
+    const float4 s = picard<P>(g, slot, lane, f0, f1, f2, g_rhs, iters);
 
     // rho sentinel: max over the rod's points of |K/2|^2 (all lanes shuffle).
     const float rho2 = group_max<P>(f0 * f0 + f1 * f1 + f2 * f2);
@@ -105,10 +127,24 @@ rod_shape_refined_kernel(const float* __restrict__ qes_hi, const float* __restri
     }
     __syncwarp();
     const double sw = s.x, sx = s.y, sy = s.z, sz = s.w;
-    const double res0 = -din64[lane] - d0 + (-kh0 * sx - kh1 * sy - kh2 * sz);
-    const double res1 = -d1 + (kh0 * sw + kh2 * sy - kh1 * sz);
-    const double res2 = -d2 + (kh1 * sw - kh2 * sx + kh0 * sz);
-    const double res3 = -d3 + (kh2 * sw + kh1 * sx - kh0 * sy);
+    double res0, res1, res2, res3;
+    if constexpr (BC) {   // rhs = -dn_in ⊗ q0, every component
+        double q0[4] = {1.0, 0.0, 0.0, 0.0};
+        if (live) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) q0[c] = pair_at(bc.q0_hi, bc.q0_lo, rod * 4 + c);
+        }
+        const double din = din64[lane];
+        res0 = -din * q0[0] - d0 + (-kh0 * sx - kh1 * sy - kh2 * sz);
+        res1 = -din * q0[1] - d1 + (kh0 * sw + kh2 * sy - kh1 * sz);
+        res2 = -din * q0[2] - d2 + (kh1 * sw - kh2 * sx + kh0 * sz);
+        res3 = -din * q0[3] - d3 + (kh2 * sw + kh1 * sx - kh0 * sy);
+    } else {
+        res0 = -din64[lane] - d0 + (-kh0 * sx - kh1 * sy - kh2 * sz);
+        res1 = -d1 + (kh0 * sw + kh2 * sy - kh1 * sz);
+        res2 = -d2 + (kh1 * sw - kh2 * sx + kh0 * sz);
+        res3 = -d3 + (kh2 * sw + kh1 * sx - kh0 * sy);
+    }
 
     // 4. f32 correction.
     const float4 g_res = g_times<P>(
@@ -143,6 +179,17 @@ rod_shape_refined_kernel(const float* __restrict__ qes_hi, const float* __restri
         p1 = fma(gij, slot64[4 * j + 1], p1);
         p2 = fma(gij, slot64[4 * j + 2], p2);
     }
+    if constexpr (BC) {   // + gvec64 ⊗ r0, in FP64
+        double r0[3] = {0.0, 0.0, 0.0};
+        if (live) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) r0[c] = pair_at(bc.r0_hi, bc.r0_lo, rod * 3 + c);
+        }
+        const double gv = bc.gvec64[lane];
+        p0 = fma(gv, r0[0], p0);
+        p1 = fma(gv, r0[1], p1);
+        p2 = fma(gv, r0[2], p2);
+    }
 
     // 6. split, or poison the rod.
     if (live && lane < npts) {
@@ -171,22 +218,54 @@ rod_shape_refined_kernel(const float* __restrict__ qes_hi, const float* __restri
     }
 }
 
-template <int P>
+template <int P, bool BC>
 void launch(const float* qes_hi, const float* qes_lo, int batch, int npts, int na, int ne,
             const float* g32, const float* gvec32, const double* g64, const double* dn64,
-            const double* ptab64, const double* din64, int iters, int corr_iters,
-            float rho2_limit, float* q_hi, float* q_lo, float* r_hi, float* r_lo,
-            cudaStream_t stream) {
+            const double* ptab64, const double* din64, Boundary bc, int iters,
+            int corr_iters, float rho2_limit, float* q_hi, float* q_lo, float* r_hi,
+            float* r_lo, cudaStream_t stream) {
     const int blocks = blocks_for(batch, P);
     if (na == 6) {
-        rod_shape_refined_kernel<P, 6><<<blocks, kThreads, 0, stream>>>(
-            qes_hi, qes_lo, batch, npts, ne, g32, gvec32, g64, dn64, ptab64, din64, iters,
+        rod_shape_refined_kernel<P, 6, BC><<<blocks, kThreads, 0, stream>>>(
+            qes_hi, qes_lo, batch, npts, ne, g32, gvec32, g64, dn64, ptab64, din64, bc, iters,
             corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
     } else {
-        rod_shape_refined_kernel<P, 3><<<blocks, kThreads, 0, stream>>>(
-            qes_hi, qes_lo, batch, npts, ne, g32, gvec32, g64, dn64, ptab64, din64, iters,
+        rod_shape_refined_kernel<P, 3, BC><<<blocks, kThreads, 0, stream>>>(
+            qes_hi, qes_lo, batch, npts, ne, g32, gvec32, g64, dn64, ptab64, din64, bc, iters,
             corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
     }
+}
+
+template <bool BC>
+int refined_entry(const float* qes_hi, const float* qes_lo, int batch, int npts, int p,
+                  int na, int ne, const float* g32, const float* gvec32, const double* g64,
+                  const double* dn64, const double* ptab64, const double* din64,
+                  Boundary bc, int iters, int corr_iters, double rho2_limit, float* q_hi,
+                  float* q_lo, float* r_hi, float* r_lo, void* stream) {
+    if (!valid_lanes(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
+        iters < 0 || corr_iters < 0 ||
+        (BC && (bc.q0_hi == nullptr || bc.r0_hi == nullptr || bc.gvec64 == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float limit = rho2_limit < 0.0 ? -1.f : (float)rho2_limit;
+    switch (p) {
+        case 8:
+            launch<8, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64, ptab64,
+                          din64, bc, iters, corr_iters, limit, q_hi, q_lo, r_hi, r_lo, s);
+            break;
+        case 16:
+            launch<16, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64,
+                           ptab64, din64, bc, iters, corr_iters, limit, q_hi, q_lo, r_hi,
+                           r_lo, s);
+            break;
+        default:
+            launch<32, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64,
+                           ptab64, din64, bc, iters, corr_iters, limit, q_hi, q_lo, r_hi,
+                           r_lo, s);
+            break;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,25 +276,23 @@ extern "C" int rod_shape_refined(const float* qes_hi, const float* qes_lo, int b
                                  const double* ptab64, const double* din64, int iters,
                                  int corr_iters, double rho2_limit, float* q_hi,
                                  float* q_lo, float* r_hi, float* r_lo, void* stream) {
-    if (!valid_lanes(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
-        iters < 0 || corr_iters < 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float limit = rho2_limit < 0.0 ? -1.f : (float)rho2_limit;
-    switch (p) {
-        case 8:
-            launch<8>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64, ptab64,
-                      din64, iters, corr_iters, limit, q_hi, q_lo, r_hi, r_lo, s);
-            break;
-        case 16:
-            launch<16>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64, ptab64,
-                       din64, iters, corr_iters, limit, q_hi, q_lo, r_hi, r_lo, s);
-            break;
-        default:
-            launch<32>(qes_hi, qes_lo, batch, npts, na, ne, g32, gvec32, g64, dn64, ptab64,
-                       din64, iters, corr_iters, limit, q_hi, q_lo, r_hi, r_lo, s);
-            break;
-    }
-    return (int)cudaGetLastError();
+    return refined_entry<false>(qes_hi, qes_lo, batch, npts, p, na, ne, g32, gvec32, g64,
+                                dn64, ptab64, din64, Boundary{}, iters, corr_iters,
+                                rho2_limit, q_hi, q_lo, r_hi, r_lo, stream);
+}
+
+// K5: q0_hi (B, 4, 16-byte aligned) and r0_hi (B, 3) f32, with optional low
+// words of the same shapes; gvec64 = -G dn_in zero-padded to P.
+extern "C" int rod_shape_refined_bc(const float* qes_hi, const float* qes_lo,
+                                    const float* q0_hi, const float* q0_lo,
+                                    const float* r0_hi, const float* r0_lo, int batch,
+                                    int npts, int p, int na, int ne, const float* g32,
+                                    const float* gvec32, const double* g64,
+                                    const double* dn64, const double* ptab64,
+                                    const double* din64, const double* gvec64, int iters,
+                                    int corr_iters, double rho2_limit, float* q_hi,
+                                    float* q_lo, float* r_hi, float* r_lo, void* stream) {
+    return refined_entry<true>(qes_hi, qes_lo, batch, npts, p, na, ne, g32, gvec32, g64,
+                               dn64, ptab64, din64, Boundary{q0_hi, q0_lo, r0_hi, r0_lo, gvec64},
+                               iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo, stream);
 }

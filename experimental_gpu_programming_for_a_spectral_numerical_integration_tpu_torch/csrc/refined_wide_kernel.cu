@@ -1,11 +1,15 @@
-// K3 wide: the whole refined rod solve in one kernel, on grids with
-// 32 < n-1 <= 512 points.
+// K3 wide and K5 wide: the whole refined rod solve in one kernel, with the demo
+// boundary values (K3) or per-rod ones (K5), on grids with 32 < n-1 <= 512
+// points.
 //
 // Replaces the wide and paired bodies of the JAX package's Pallas TPU kernel
 // ops/pallas/refined_kernel.py rod_shape_refined_kernel, which differ only in
 // how they pack rods onto 128-lane tiles: _rod_shape_refined_kernel_wide
 // (pallas_call :540) and _rod_shape_refined_kernel_pair (pallas_call in
-// _refined_pair_call, :1195).  Same steps as K3 narrow (refined_kernel.cu):
+// _refined_pair_call, :1195), and of rod_shape_refined_kernel_bc:
+// _rod_shape_refined_kernel_bc_wide (pallas_call :635) and
+// _rod_shape_refined_kernel_bc_pair (:1253, in _refined_pair_call :1195).
+// Same steps as K3 and K5 narrow (refined_kernel.cu):
 //   1. K = Phi (qe_hi + qe_lo) in FP64;
 //   2. f32 Picard base solve s (K/2 rounded to f32);
 //   3. residual rhs - Dn_NN s + 1/2 A(K) s in FP64, rhs = -dn_in ⊗ (1,0,0,0);
@@ -14,6 +18,9 @@
 //      (R(x)(e1 + gamma) for na = 6) and FP64 position r = G b;
 //   6. x and r split into f32 (hi, lo) pairs; a rod with
 //      max_i |K_i / 2|^2 > (check_rho / L)^2 is NaN in all four outputs.
+// K5 takes q0 = q0_hi + q0_lo and r0 = r0_hi + r0_lo per rod: the base solve
+// starts from gvec32 ⊗ q0_hi, the residual's rhs is -dn_in ⊗ q0 and the
+// position G b + gvec64 ⊗ r0, both in FP64 (gvec64 = -G dn_in).
 // The TPU bodies fold 1/2 into the strain table and run steps 3 and 5 on int8
 // Ozaki planes with int8-window NaN tests; here 1/2 is folded into K, the
 // full G is used, and steps 3 and 5 are native FP64 (no planes, no window
@@ -29,14 +36,16 @@
 // which is reused as an FP64 panel for the position.  A rod spans several
 // warps, so the rho sentinel's max is a shared-memory atomicMax.
 //
-// C interface as rod_wide_kernel.cu; qes_lo may be NULL (zero low word) and
-// rho2_limit < 0 disables the sentinel.  g32t, dn64t and g64t are the
+// C interface as rod_wide_kernel.cu; qes_lo, q0_lo and r0_lo may be NULL (zero
+// low words) and rho2_limit < 0 disables the sentinel.  g32t, dn64t and g64t are the
 // transposed operators, zero-padded to P x P.
+#include "refined_bc.cuh"
 #include "wide_common.cuh"
 
 namespace {
 
 using namespace wide;
+using namespace refined_bc;
 
 __device__ __forceinline__ void split(double v, float& hi, float& lo) {
     hi = __double2float_rn(v);
@@ -73,7 +82,7 @@ constexpr size_t panel_bytes() {
     return (size_t)P * Layout<P>::R * 2 * sizeof(double2);   // 4 doubles per point and rod
 }
 
-template <int P, int NA>
+template <int P, int NA, bool BC>
 __global__ void __launch_bounds__(kThreads)
 rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               const float* __restrict__ qes_lo, int batch, int npts, int ne,
@@ -81,7 +90,8 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               const double* __restrict__ g64t,
                               const double* __restrict__ dn64t,
                               const double* __restrict__ ptab64,
-                              const double* __restrict__ din64, int iters, int corr_iters,
+                              const double* __restrict__ din64, Boundary bc, int iters,
+                              int corr_iters,
                               float rho2_limit, float* __restrict__ q_hi,
                               float* __restrict__ q_lo, float* __restrict__ r_hi,
                               float* __restrict__ r_lo) {
@@ -102,6 +112,14 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
     if (threadIdx.x < R) rho_bits[threadIdx.x] = 0;
     __syncthreads();
 
+    // K5's boundary values are read where they are used, to keep them out of
+    // the register peak of the Picard loops: q0_hi here (the f32 base solve
+    // starts from gvec32 ⊗ q0_hi), q0 for the residual, r0 for the position.
+    float4 q0h = make_float4(1.f, 0.f, 0.f, 0.f);
+    if constexpr (BC) {
+        if (live) q0h = reinterpret_cast<const float4*>(bc.q0_hi)[gid];
+    }
+
     // 1. K/2 in FP64, rounded to f32 for the Picard loops.
     float kh[TM][3];
     float4 g_rhs[TM];
@@ -114,7 +132,12 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                             : 0.f;
         }
         rho2 = fmaxf(rho2, kh[m][0] * kh[m][0] + kh[m][1] * kh[m][1] + kh[m][2] * kh[m][2]);
-        g_rhs[m] = make_float4(gvec32[i0 + m], 0.f, 0.f, 0.f);
+        const float gv = gvec32[i0 + m];
+        if constexpr (BC) {
+            g_rhs[m] = make_float4(gv * q0h.x, gv * q0h.y, gv * q0h.z, gv * q0h.w);
+        } else {
+            g_rhs[m] = make_float4(gv, 0.f, 0.f, 0.f);
+        }
     }
 
     // 2. f32 base solve.
@@ -157,11 +180,25 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
             kh2 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 2);
         }
         const double sw = s[m].x, sx = s[m].y, sy = s[m].z, sz = s[m].w;
-        const double r0 = -din64[i] - d[m][0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
-        const double r1 = -d[m][1] + (kh0 * sw + kh2 * sy - kh1 * sz);
-        const double r2 = -d[m][2] + (kh1 * sw - kh2 * sx + kh0 * sz);
-        const double r3 = -d[m][3] + (kh2 * sw + kh1 * sx - kh0 * sy);
-        res[m] = make_float4((float)r0, (float)r1, (float)r2, (float)r3);
+        double e0, e1, e2, e3;
+        if constexpr (BC) {   // rhs = -dn_in ⊗ q0, every component
+            double q0[4] = {1.0, 0.0, 0.0, 0.0};
+            if (live) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) q0[c] = pair_at(bc.q0_hi, bc.q0_lo, gid * 4 + c);
+            }
+            const double din = din64[i];
+            e0 = -din * q0[0] - d[m][0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
+            e1 = -din * q0[1] - d[m][1] + (kh0 * sw + kh2 * sy - kh1 * sz);
+            e2 = -din * q0[2] - d[m][2] + (kh1 * sw - kh2 * sx + kh0 * sz);
+            e3 = -din * q0[3] - d[m][3] + (kh2 * sw + kh1 * sx - kh0 * sy);
+        } else {
+            e0 = -din64[i] - d[m][0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
+            e1 = -d[m][1] + (kh0 * sw + kh2 * sy - kh1 * sz);
+            e2 = -d[m][2] + (kh1 * sw - kh2 * sx + kh0 * sz);
+            e3 = -d[m][3] + (kh2 * sw + kh1 * sx - kh0 * sy);
+        }
+        res[m] = make_float4((float)e0, (float)e1, (float)e2, (float)e3);
     }
 
     // 4. f32 correction.
@@ -229,6 +266,19 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
             p[m][2] = fma(gk[m], b2.x, p[m][2]);
         }
     }
+    if constexpr (BC) {   // + gvec64 ⊗ r0, in FP64
+        double r0[3] = {0.0, 0.0, 0.0};
+        if (live) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) r0[c] = pair_at(bc.r0_hi, bc.r0_lo, gid * 3 + c);
+        }
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+            const double gv = bc.gvec64[i0 + m];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) p[m][c] = fma(gv, r0[c], p[m][c]);
+        }
+    }
 
     // 6. split the position, or poison the rod.
     if (live) {
@@ -248,38 +298,71 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
     }
 }
 
-template <int P, int NA>
+template <int P, int NA, bool BC>
 int launch_na(const float* qes_hi, const float* qes_lo, int batch, int npts, int ne,
               const float* g32t, const float* gvec32, const double* g64t,
-              const double* dn64t, const double* ptab64, const double* din64, int iters,
-              int corr_iters, float rho2_limit, float* q_hi, float* q_lo, float* r_hi,
-              float* r_lo, cudaStream_t stream) {
+              const double* dn64t, const double* ptab64, const double* din64, Boundary bc,
+              int iters, int corr_iters, float rho2_limit, float* q_hi, float* q_lo,
+              float* r_hi, float* r_lo, cudaStream_t stream) {
     constexpr size_t bytes = panel_bytes<P>();
     const cudaError_t err = cudaFuncSetAttribute(
-        rod_shape_refined_wide_kernel<P, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rod_shape_refined_wide_kernel<P, NA, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const int blocks = blocks_for(batch, Layout<P>::R);
-    rod_shape_refined_wide_kernel<P, NA><<<blocks, kThreads, bytes, stream>>>(
-            qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t, ptab64, din64, iters,
-            corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
+    rod_shape_refined_wide_kernel<P, NA, BC><<<blocks, kThreads, bytes, stream>>>(
+            qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t, ptab64, din64, bc,
+            iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
     return (int)cudaGetLastError();
 }
 
-template <int P>
+template <int P, bool BC>
 int launch(const float* qes_hi, const float* qes_lo, int batch, int npts, int na, int ne,
            const float* g32t, const float* gvec32, const double* g64t, const double* dn64t,
-           const double* ptab64, const double* din64, int iters, int corr_iters,
+           const double* ptab64, const double* din64, Boundary bc, int iters, int corr_iters,
            float rho2_limit, float* q_hi, float* q_lo, float* r_hi, float* r_lo,
            cudaStream_t stream) {
     if (na == 6) {
-        return launch_na<P, 6>(qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t,
-                               ptab64, din64, iters, corr_iters, rho2_limit, q_hi, q_lo,
-                               r_hi, r_lo, stream);
+        return launch_na<P, 6, BC>(qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t,
+                                   ptab64, din64, bc, iters, corr_iters, rho2_limit, q_hi,
+                                   q_lo, r_hi, r_lo, stream);
     }
-    return launch_na<P, 3>(qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t,
-                           ptab64, din64, iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi,
-                           r_lo, stream);
+    return launch_na<P, 3, BC>(qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t,
+                               ptab64, din64, bc, iters, corr_iters, rho2_limit, q_hi, q_lo,
+                               r_hi, r_lo, stream);
+}
+
+template <bool BC>
+int refined_entry(const float* qes_hi, const float* qes_lo, int batch, int npts, int p,
+                  int na, int ne, const float* g32t, const float* gvec32, const double* g64t,
+                  const double* dn64t, const double* ptab64, const double* din64,
+                  Boundary bc, int iters, int corr_iters, double rho2_limit, float* q_hi,
+                  float* q_lo, float* r_hi, float* r_lo, void* stream) {
+    if (!valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
+        iters < 0 || corr_iters < 0 ||
+        (BC && (bc.q0_hi == nullptr || bc.r0_hi == nullptr || bc.gvec64 == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float limit = rho2_limit < 0.0 ? -1.f : (float)rho2_limit;
+    switch (p) {
+        case 64:
+            return launch<64, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
+                                  dn64t, ptab64, din64, bc, iters, corr_iters, limit, q_hi,
+                                  q_lo, r_hi, r_lo, s);
+        case 128:
+            return launch<128, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
+                                   dn64t, ptab64, din64, bc, iters, corr_iters, limit, q_hi,
+                                   q_lo, r_hi, r_lo, s);
+        case 256:
+            return launch<256, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
+                                   dn64t, ptab64, din64, bc, iters, corr_iters, limit, q_hi,
+                                   q_lo, r_hi, r_lo, s);
+        default:
+            return launch<512, BC>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
+                                   dn64t, ptab64, din64, bc, iters, corr_iters, limit, q_hi,
+                                   q_lo, r_hi, r_lo, s);
+    }
 }
 
 }  // namespace
@@ -291,28 +374,24 @@ extern "C" int rod_shape_refined_wide(const float* qes_hi, const float* qes_lo, 
                                       const double* din64, int iters, int corr_iters,
                                       double rho2_limit, float* q_hi, float* q_lo,
                                       float* r_hi, float* r_lo, void* stream) {
-    if (!valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
-        iters < 0 || corr_iters < 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float limit = rho2_limit < 0.0 ? -1.f : (float)rho2_limit;
-    switch (p) {
-        case 64:
-            return launch<64>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t, dn64t,
-                              ptab64, din64, iters, corr_iters, limit, q_hi, q_lo, r_hi,
-                              r_lo, s);
-        case 128:
-            return launch<128>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
-                               dn64t, ptab64, din64, iters, corr_iters, limit, q_hi, q_lo,
-                               r_hi, r_lo, s);
-        case 256:
-            return launch<256>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
-                               dn64t, ptab64, din64, iters, corr_iters, limit, q_hi, q_lo,
-                               r_hi, r_lo, s);
-        default:
-            return launch<512>(qes_hi, qes_lo, batch, npts, na, ne, g32t, gvec32, g64t,
-                               dn64t, ptab64, din64, iters, corr_iters, limit, q_hi, q_lo,
-                               r_hi, r_lo, s);
-    }
+    return refined_entry<false>(qes_hi, qes_lo, batch, npts, p, na, ne, g32t, gvec32, g64t,
+                                dn64t, ptab64, din64, Boundary{}, iters, corr_iters,
+                                rho2_limit, q_hi, q_lo, r_hi, r_lo, stream);
+}
+
+// K5 wide: arguments as rod_shape_refined_bc (refined_kernel.cu), with the
+// transposed operators of rod_shape_refined_wide.
+extern "C" int rod_shape_refined_bc_wide(const float* qes_hi, const float* qes_lo,
+                                         const float* q0_hi, const float* q0_lo,
+                                         const float* r0_hi, const float* r0_lo, int batch,
+                                         int npts, int p, int na, int ne, const float* g32t,
+                                         const float* gvec32, const double* g64t,
+                                         const double* dn64t, const double* ptab64,
+                                         const double* din64, const double* gvec64,
+                                         int iters, int corr_iters, double rho2_limit,
+                                         float* q_hi, float* q_lo, float* r_hi, float* r_lo,
+                                         void* stream) {
+    return refined_entry<true>(qes_hi, qes_lo, batch, npts, p, na, ne, g32t, gvec32, g64t,
+                               dn64t, ptab64, din64, Boundary{q0_hi, q0_lo, r0_hi, r0_lo, gvec64},
+                               iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo, stream);
 }

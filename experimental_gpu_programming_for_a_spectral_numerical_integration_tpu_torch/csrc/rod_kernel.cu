@@ -1,4 +1,5 @@
-// K1 and K2: fused f32 rod solve and general right-hand-side Picard solve.
+// K1, K2 and K4: fused f32 rod solve, general right-hand-side Picard solve, and
+// the fused solve with per-rod boundary values.
 //
 // Replaces the JAX package's Pallas TPU kernels in ops/pallas/rod_kernel.py:
 //   K1 rod_shape_fused (body _kernel): qe -> K = Phi qe -> Picard
@@ -6,7 +7,12 @@
 //      b = R(s) e1, or R(s)(e1 + gamma) for na = 6 (unnormalized R) ->
 //      position r = G b (r0 = 0);
 //   K2 picard_correction_fused (body _corr_kernel): x = G rhs + G (1/2 A(K)) x
-//      for a per-rod rhs; reads only the 3 curvature components of qe.
+//      for a per-rod rhs; reads only the 3 curvature components of qe;
+//   K4 rod_shape_fused_bc (body _kernel_bc, pallas_call :508): K1 with per-rod
+//      boundary values q0 (B,4) and r0 (B,3).  G(-dn_in ⊗ q0) = gvec ⊗ q0 with
+//      K1's constant gvec = G(-dn_in), so lane i starts from gvec_i q0 and the
+//      position is r = G b + gvec ⊗ r0.  The TPU body built -dn_in ⊗ q0 from
+//      outer-product row blocks; here it is one product per component.
 //
 // Bound on an H100: ~21,600 FP32 FMAs per rod at N=16 against ~456 bytes of
 // device traffic, so FP32-FMA bound.  Design: one group of P lanes per rod
@@ -25,9 +31,12 @@ namespace {
 
 using namespace rod;
 
-template <int P, int NA>
+// K1 (BC = false: q0 = (1,0,0,0), r0 = 0) and K4 (BC = true: q0 and r0 per
+// rod, q0 not normalised) share this body.
+template <int P, int NA, bool BC>
 __global__ void __launch_bounds__(kThreads)
-rod_shape_fused_kernel(const float* __restrict__ qes, int batch, int npts, int ne,
+rod_shape_fused_kernel(const float* __restrict__ qes, const float* __restrict__ q0s,
+                       const float* __restrict__ r0s, int batch, int npts, int ne,
                        const float* __restrict__ gmat, const float* __restrict__ ptab,
                        const float* __restrict__ gvec, int iters,
                        float* __restrict__ q_out, float* __restrict__ r_out) {
@@ -53,7 +62,17 @@ rod_shape_fused_kernel(const float* __restrict__ qes, int batch, int npts, int n
         }
     }
 
-    const float4 g_rhs = make_float4(gvec[lane], 0.f, 0.f, 0.f);
+    float4 g_rhs = make_float4(gvec[lane], 0.f, 0.f, 0.f);
+    float r0[3] = {0.f, 0.f, 0.f};
+    if constexpr (BC) {
+        if (live) {
+            const float4 q0 = reinterpret_cast<const float4*>(q0s)[rod];
+            const float gv = gvec[lane];
+            g_rhs = make_float4(gv * q0.x, gv * q0.y, gv * q0.z, gv * q0.w);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) r0[c] = gvec[lane] * r0s[rod * 3 + c];
+        }
+    }
     const float4 s = picard<P>(g, slot, lane, 0.5f * k[0], 0.5f * k[1], 0.5f * k[2],
                                g_rhs, iters);
 
@@ -74,7 +93,12 @@ rod_shape_fused_kernel(const float* __restrict__ qes, int batch, int npts, int n
     } else {
         b = make_float4(r00, r10, r20, 0.f);
     }
-    const float4 r = g_times<P>(g, slot, lane, b);
+    float4 r = g_times<P>(g, slot, lane, b);
+    if constexpr (BC) {
+        r.x += r0[0];
+        r.y += r0[1];
+        r.z += r0[2];
+    }
 
     if (live && lane < npts) {
         const long long at = rod * npts + lane;
@@ -122,18 +146,35 @@ picard_correction_kernel(const float* __restrict__ qes, int batch, int npts, int
     if (point) reinterpret_cast<float4*>(x_out)[rod * npts + lane] = x;
 }
 
-template <int P>
-void launch_fused(const float* qes, int batch, int npts, int na, int ne, const float* g,
-                  const float* ptab, const float* gvec, int iters, float* q, float* r,
-                  cudaStream_t stream) {
+template <int P, bool BC>
+void launch_fused(const float* qes, const float* q0, const float* r0, int batch, int npts,
+                  int na, int ne, const float* g, const float* ptab, const float* gvec,
+                  int iters, float* q, float* r, cudaStream_t stream) {
     const int blocks = blocks_for(batch, P);
     if (na == 6) {
-        rod_shape_fused_kernel<P, 6><<<blocks, kThreads, 0, stream>>>(
-            qes, batch, npts, ne, g, ptab, gvec, iters, q, r);
+        rod_shape_fused_kernel<P, 6, BC><<<blocks, kThreads, 0, stream>>>(
+            qes, q0, r0, batch, npts, ne, g, ptab, gvec, iters, q, r);
     } else {
-        rod_shape_fused_kernel<P, 3><<<blocks, kThreads, 0, stream>>>(
-            qes, batch, npts, ne, g, ptab, gvec, iters, q, r);
+        rod_shape_fused_kernel<P, 3, BC><<<blocks, kThreads, 0, stream>>>(
+            qes, q0, r0, batch, npts, ne, g, ptab, gvec, iters, q, r);
     }
+}
+
+template <bool BC>
+int fused_entry(const float* qes, const float* q0, const float* r0, int batch, int npts,
+                int p, int na, int ne, const float* g, const float* ptab, const float* gvec,
+                int iters, float* q_out, float* r_out, void* stream) {
+    if (!valid_lanes(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
+        iters < 0 || (BC && (q0 == nullptr || r0 == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (p) {
+        case 8: launch_fused<8, BC>(qes, q0, r0, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
+        case 16: launch_fused<16, BC>(qes, q0, r0, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
+        default: launch_fused<32, BC>(qes, q0, r0, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
+    }
+    return (int)cudaGetLastError();
 }
 
 template <int P>
@@ -151,17 +192,17 @@ extern "C" int rod_shape_fused_f32(const float* qes, int batch, int npts, int p,
                                    int ne, const float* g, const float* ptab,
                                    const float* gvec, int iters, float* q_out,
                                    float* r_out, void* stream) {
-    if (!valid_lanes(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
-        iters < 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (p) {
-        case 8: launch_fused<8>(qes, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
-        case 16: launch_fused<16>(qes, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
-        default: launch_fused<32>(qes, batch, npts, na, ne, g, ptab, gvec, iters, q_out, r_out, s); break;
-    }
-    return (int)cudaGetLastError();
+    return fused_entry<false>(qes, nullptr, nullptr, batch, npts, p, na, ne, g, ptab, gvec,
+                              iters, q_out, r_out, stream);
+}
+
+// q0 (B, 4) and r0 (B, 3) contiguous f32; q0 16-byte aligned.
+extern "C" int rod_shape_fused_bc_f32(const float* qes, const float* q0, const float* r0,
+                                      int batch, int npts, int p, int na, int ne,
+                                      const float* g, const float* ptab, const float* gvec,
+                                      int iters, float* q_out, float* r_out, void* stream) {
+    return fused_entry<true>(qes, q0, r0, batch, npts, p, na, ne, g, ptab, gvec, iters,
+                             q_out, r_out, stream);
 }
 
 extern "C" int picard_correction_f32(const float* qes, int batch, int npts, int p, int nq,

@@ -1,5 +1,6 @@
-// K1 wide and K2 wide: the fused f32 rod solve and the general right-hand-side
-// Picard solve on grids with 32 < n-1 <= 512 points.
+// K1 wide, K2 wide and K4 wide: the fused f32 rod solve, the general
+// right-hand-side Picard solve and the fused solve with per-rod boundary values
+// on grids with 32 < n-1 <= 512 points.
 //
 // Replaces the wide and paired bodies of the JAX package's Pallas TPU kernels
 // in ops/pallas/rod_kernel.py, which differ only in how they pack rods onto
@@ -11,7 +12,12 @@
 //      position r = G b (r0 = 0);
 //   K2 wide: _picard_correction_fused_wide (:738) and
 //      _picard_correction_fused_pair (:997): x = G rhs + G (1/2 A(K)) x for a
-//      per-rod rhs; reads only the 3 curvature components of qe.
+//      per-rod rhs; reads only the 3 curvature components of qe;
+//   K4 wide: _rod_shape_fused_bc_wide (:769, pallas_call in _wide_call :738) and
+//      _rod_shape_fused_bc_pair (:1028, in _pair_call :997): K1 wide with per-rod
+//      q0 (B,4) and r0 (B,3); G(-dn_in ⊗ q0) = gvec ⊗ q0, so point i starts
+//      from gvec_i q0, and the position is r = G b + gvec ⊗ r0 (q0 is not
+//      normalised, as in the JAX package).
 // The ½ is folded into K and the full G is used (the TPU bodies use W = G/2
 // and a x2 tangent); the result is the same.
 //
@@ -44,9 +50,12 @@ __device__ __forceinline__ float strain(const float* __restrict__ qe_rod,
     return k;
 }
 
-template <int P, int NA>
+// K1 wide (BC = false: q0 = (1,0,0,0), r0 = 0) and K4 wide (BC = true) share
+// this body.
+template <int P, int NA, bool BC>
 __global__ void __launch_bounds__(kThreads)
-rod_shape_fused_wide_kernel(const float* __restrict__ qes, int batch, int npts, int ne,
+rod_shape_fused_wide_kernel(const float* __restrict__ qes, const float* __restrict__ q0s,
+                            const float* __restrict__ r0s, int batch, int npts, int ne,
                             const float* __restrict__ gt, const float* __restrict__ ptab,
                             const float* __restrict__ gvec, int iters,
                             float* __restrict__ q_out, float* __restrict__ r_out) {
@@ -59,6 +68,15 @@ rod_shape_fused_wide_kernel(const float* __restrict__ qes, int batch, int npts, 
     const bool live = gid < batch;
     const float* qe_rod = qes + gid * (NA * ne);
 
+    float4 q0 = make_float4(1.f, 0.f, 0.f, 0.f);
+    float r0[3] = {0.f, 0.f, 0.f};
+    if constexpr (BC) {
+        if (live) {
+            q0 = reinterpret_cast<const float4*>(q0s)[gid];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) r0[c] = r0s[gid * 3 + c];
+        }
+    }
     float kh[TM][3];
     float4 g_rhs[TM];
 #pragma unroll
@@ -67,14 +85,19 @@ rod_shape_fused_wide_kernel(const float* __restrict__ qes, int batch, int npts, 
         for (int a = 0; a < 3; ++a) {
             kh[m][a] = live ? 0.5f * strain(qe_rod, ptab, ne, i0 + m, a) : 0.f;
         }
-        g_rhs[m] = make_float4(gvec[i0 + m], 0.f, 0.f, 0.f);
+        const float gv = gvec[i0 + m];
+        if constexpr (BC) {
+            g_rhs[m] = make_float4(gv * q0.x, gv * q0.y, gv * q0.z, gv * q0.w);
+        } else {
+            g_rhs[m] = make_float4(gv, 0.f, 0.f, 0.f);
+        }
     }
 
     float4 s[TM];
     picard<P>(gt, panel, npts, i0, rod, kh, g_rhs, iters, s);
 
     // Unnormalized tangent (main.cpp:130-136), Reissner form for na = 6.
-    float4 b[TM], zero[TM];
+    float4 b[TM], base[TM];
 #pragma unroll
     for (int m = 0; m < TM; ++m) {
         const float w = s[m].x, x = s[m].y, y = s[m].z, z = s[m].w;
@@ -95,10 +118,12 @@ rod_shape_fused_wide_kernel(const float* __restrict__ qes, int batch, int npts, 
         } else {
             b[m] = make_float4(r00, r10, r20, 0.f);
         }
-        zero[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+        // The position r = G b + gvec ⊗ r0 starts from the boundary term.
+        const float gv = BC ? gvec[i0 + m] : 0.f;
+        base[m] = make_float4(gv * r0[0], gv * r0[1], gv * r0[2], 0.f);
     }
     float4 r[TM];
-    g_times<P>(gt, panel, npts, i0, rod, b, zero, r);
+    g_times<P>(gt, panel, npts, i0, rod, b, base, r);
 
     if (live) {
 #pragma unroll
@@ -157,18 +182,36 @@ picard_correction_wide_kernel(const float* __restrict__ qes, int batch, int npts
     }
 }
 
-template <int P>
-void launch_fused(const float* qes, int batch, int npts, int na, int ne, const float* gt,
-                  const float* ptab, const float* gvec, int iters, float* q, float* r,
-                  cudaStream_t stream) {
+template <int P, bool BC>
+void launch_fused(const float* qes, const float* q0, const float* r0, int batch, int npts,
+                  int na, int ne, const float* gt, const float* ptab, const float* gvec,
+                  int iters, float* q, float* r, cudaStream_t stream) {
     const int blocks = blocks_for(batch, Layout<P>::R);
     if (na == 6) {
-        rod_shape_fused_wide_kernel<P, 6><<<blocks, kThreads, 0, stream>>>(
-            qes, batch, npts, ne, gt, ptab, gvec, iters, q, r);
+        rod_shape_fused_wide_kernel<P, 6, BC><<<blocks, kThreads, 0, stream>>>(
+            qes, q0, r0, batch, npts, ne, gt, ptab, gvec, iters, q, r);
     } else {
-        rod_shape_fused_wide_kernel<P, 3><<<blocks, kThreads, 0, stream>>>(
-            qes, batch, npts, ne, gt, ptab, gvec, iters, q, r);
+        rod_shape_fused_wide_kernel<P, 3, BC><<<blocks, kThreads, 0, stream>>>(
+            qes, q0, r0, batch, npts, ne, gt, ptab, gvec, iters, q, r);
     }
+}
+
+template <bool BC>
+int fused_entry(const float* qes, const float* q0, const float* r0, int batch, int npts,
+                int p, int na, int ne, const float* gt, const float* ptab, const float* gvec,
+                int iters, float* q_out, float* r_out, void* stream) {
+    if (!valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
+        iters < 0 || (BC && (q0 == nullptr || r0 == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (p) {
+        case 64: launch_fused<64, BC>(qes, q0, r0, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
+        case 128: launch_fused<128, BC>(qes, q0, r0, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
+        case 256: launch_fused<256, BC>(qes, q0, r0, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
+        default: launch_fused<512, BC>(qes, q0, r0, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
+    }
+    return (int)cudaGetLastError();
 }
 
 template <int P>
@@ -186,18 +229,18 @@ extern "C" int rod_shape_fused_wide_f32(const float* qes, int batch, int npts, i
                                         int na, int ne, const float* gt, const float* ptab,
                                         const float* gvec, int iters, float* q_out,
                                         float* r_out, void* stream) {
-    if (!valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
-        iters < 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (p) {
-        case 64: launch_fused<64>(qes, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
-        case 128: launch_fused<128>(qes, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
-        case 256: launch_fused<256>(qes, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
-        default: launch_fused<512>(qes, batch, npts, na, ne, gt, ptab, gvec, iters, q_out, r_out, s); break;
-    }
-    return (int)cudaGetLastError();
+    return fused_entry<false>(qes, nullptr, nullptr, batch, npts, p, na, ne, gt, ptab, gvec,
+                              iters, q_out, r_out, stream);
+}
+
+// q0 (B, 4) and r0 (B, 3) contiguous f32; q0 16-byte aligned.
+extern "C" int rod_shape_fused_bc_wide_f32(const float* qes, const float* q0,
+                                           const float* r0, int batch, int npts, int p,
+                                           int na, int ne, const float* gt,
+                                           const float* ptab, const float* gvec, int iters,
+                                           float* q_out, float* r_out, void* stream) {
+    return fused_entry<true>(qes, q0, r0, batch, npts, p, na, ne, gt, ptab, gvec, iters,
+                             q_out, r_out, stream);
 }
 
 extern "C" int picard_correction_wide_f32(const float* qes, int batch, int npts, int p,

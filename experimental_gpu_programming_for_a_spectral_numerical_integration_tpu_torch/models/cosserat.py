@@ -22,9 +22,8 @@ projected onto the strain modes with Clenshaw-Curtis quadrature:
 
 Both Newton loops take their step with ``torch.linalg.solve_ex`` (no host
 sync).  The JAX package hand-rolled a Gauss-Jordan solve because the TPU's
-batched LU was slow at ``nq x nq``; on an H100 the library solve is ~26x
-faster than the port of that solve (``ops/smallsolve.py``) at ``(16384, 9, 9)``
-(``chip_smoke.py`` times both).
+batched LU was slow at ``nq x nq``; on an H100 the library solve was 26-31x
+faster than a port of that solve at ``(16384, 9, 9)``, which was then removed.
 
 Factories and non-tensor loads go to the default device, the card
 (``ops/device.py``); torch tensors keep theirs.
@@ -319,6 +318,16 @@ def _fused_state_and_tangents(qe: torch.Tensor, cfg: StaticsConfig, iters: int,
     return q_full, r_full, dq_dirs, dr_dirs
 
 
+def jvp_columns(f, primals: tuple, tangents: tuple):
+    """``(f(*primals), jac)``: column ``j`` of ``jac`` is the jvp of ``f``
+    along the ``j``-th entry of every tangent stack (each ``tangents[i]`` is
+    ``primals[i]``'s shape with a leading direction axis).  ``jac``:
+    ``(..., n_out, n_dir)``."""
+    res = f(*primals)
+    dres = torch.func.vmap(lambda *t: torch.func.jvp(f, primals, t)[1])(*tangents)
+    return res, torch.movedim(dres, 0, -1)
+
+
 def _jvp_jacobian(f, qe, q_full, r_full, dq_dirs, dr_dirs):
     """``(res, jac)`` of the residual map ``f(qe, q, r)`` from precomputed
     state tangents: column ``j`` is the jvp along ``e_j`` with the matching
@@ -326,15 +335,11 @@ def _jvp_jacobian(f, qe, q_full, r_full, dq_dirs, dr_dirs):
     zero).  ``jac``: ``(B, nq_out, nq_dir)``."""
     nq = qe.shape[-1]
     pad = (0, 0, 0, 1)
-    dq_full = torch.nn.functional.pad(dq_dirs, pad)
-    dr_full = torch.nn.functional.pad(dr_dirs, pad)
     dqe = torch.eye(nq, dtype=qe.dtype, device=qe.device)[:, None, :].expand(
         (nq,) + qe.shape)
-    res = f(qe, q_full, r_full)
-    dres = torch.func.vmap(
-        lambda a, b, c: torch.func.jvp(f, (qe, q_full, r_full), (a, b, c))[1])(
-            dqe, dq_full, dr_full)                                     # (nq, B, nq)
-    return res, torch.movedim(dres, 0, -1)
+    return jvp_columns(f, (qe, q_full, r_full),
+                       (dqe, torch.nn.functional.pad(dq_dirs, pad),
+                        torch.nn.functional.pad(dr_dirs, pad)))
 
 
 def residual_and_jacobian_fused(qe, tip_force, tip_moment, cfg: StaticsConfig,

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``models/rod.py``:
 * :func:`quaternion_kinematics` solves ``Q' = 1/2 A(K(X)) Q``, ``Q(0) = q_init``;
 * :func:`rod_shape` chains the position quadrature ``r' = R(Q) e1``,
   ``r(0) = r_init``, on the same grid; methods 'dense', 'picard', 'refined'
-  and 'fused' (the K1 CUDA kernel, narrow or wide);
+  and 'fused' (the K1 CUDA kernel, narrow or wide, or K4 when the caller
+  gives ``q_init`` or ``r_init``);
 * :func:`rod_shape_refined_fused` is the accuracy-gated headline path: the
   single K3 kernel, or the staged path of K2 solves around float64
   residuals and quadrature.
@@ -169,10 +170,11 @@ def _check_rho(qe, cfg: RodConfig, max_rho: float, where: str) -> None:
         )
 
 
-def _q_init(q_init, like: torch.Tensor) -> torch.Tensor:
-    q0 = torch.as_tensor(DEFAULT_Q_INIT if q_init is None else q_init,
-                         dtype=like.dtype, device=like.device)
-    return q0.expand(like.shape[:-1] + (4,))
+def initial_state(v, default, like: torch.Tensor, dim: int) -> torch.Tensor:
+    """A boundary value (``default`` when ``v`` is None) in ``like``'s dtype
+    and device, broadcast over its leading axes: ``(..., dim)``."""
+    v = torch.as_tensor(default if v is None else v)
+    return v.to(device=like.device, dtype=like.dtype).expand(like.shape[:-1] + (dim,))
 
 
 def quaternion_kinematics(qe, q_init=None, cfg: RodConfig = RodConfig(),
@@ -186,7 +188,7 @@ def quaternion_kinematics(qe, q_init=None, cfg: RodConfig = RodConfig(),
     """
     qe_arr = _hi_word(qe)
     grid = cfg.grid(qe_arr.device)
-    q0 = _q_init(q_init, qe_arr)
+    q0 = initial_state(q_init, DEFAULT_Q_INIT, qe_arr, 4)
 
     if method == "dense":
         m = _ode_blocks(curvature_at_points(cfg, qe_arr)[..., :3])
@@ -346,16 +348,17 @@ def rod_shape(qe, q_init=None, r_init=None, cfg: RodConfig = RodConfig(),
             raise NotImplementedError(
                 "method='fused' keeps the reference's unnormalized-quaternion "
                 "semantics")
-        if q_init is not None or r_init is not None:
-            raise NotImplementedError(
-                "method='fused' with custom boundary conditions needs the K4 "
-                "kernel (rod_shape_fused_bc), not yet ported: ROADMAP.md "
-                "Queue 2, K4")
         from ..ops.kernels import rod_kernel as rk
 
         batch = qe_arr.shape[:-1]
-        q, r = rk.rod_shape_fused(qe_arr.reshape(-1, qe_arr.shape[-1]), cfg=cfg,
-                                  iters=iters)
+        flat = qe_arr.reshape(-1, qe_arr.shape[-1])
+        if q_init is None and r_init is None:
+            q, r = rk.rod_shape_fused(flat, cfg=cfg, iters=iters)
+        else:   # per-rod boundary values through K4, broadcast over the batch
+            q, r = rk.rod_shape_fused_bc(
+                flat, initial_state(q_init, DEFAULT_Q_INIT, qe_arr, 4).reshape(-1, 4),
+                initial_state(r_init, DEFAULT_R_INIT, qe_arr, 3).reshape(-1, 3), cfg=cfg,
+                iters=iters)
         return RodSolution(quaternions=q.reshape(batch + q.shape[1:]),
                            positions=r.reshape(batch + r.shape[1:]))
 

@@ -1,4 +1,4 @@
-"""K3: the whole refined rod solve in one kernel.
+"""K3 and K5: the whole refined rod solve in one kernel.
 
 Sources: ``csrc/refined_kernel.cu`` (narrow grids, n-1 <= 32) and
 ``csrc/refined_wide_kernel.cu`` (K3 wide, 32 < n-1 <= 512).  They replace
@@ -17,6 +17,14 @@ the TPU's tiles), the headline path of ``rod_shape_refined_fused``:
 6. outputs split into f32 pairs ``(hi, lo)``; a rod whose
    ``max_i |K_i| L/2`` exceeds ``check_rho`` comes back NaN in all four.
 
+K5 ``rod_shape_refined_kernel_bc`` (the same bodies with ``bc=True``) is K3
+with per-rod boundary values given as f32 pairs, ``q0 = q0_hi + q0_lo`` and
+``r0 = r0_hi + r0_lo``: the f32 base solve starts from ``gvec32 ⊗ q0_hi``,
+the FP64 residual's right-hand side is ``-dn_in ⊗ q0`` and the FP64 position
+is ``G b + gvec64 ⊗ r0`` (``gvec64 = -G dn_in``), so the multi-segment
+accuracy chain (``models/segments.py``, ``method='refined_fused'``) never
+drops a junction to f32.
+
 On the TPU steps 3 and 5 needed int8 Ozaki planes and double-word EFTs,
 and the kernel NaN-poisoned states outside the int8 windows (``|s| >= 3.96``,
 ``|b| >= 7.92``).  With native FP64 neither the planes nor those window
@@ -34,9 +42,10 @@ several warps, G^T streamed through L1/L2 against a shared-memory panel),
 reads ``Dn_NN^T`` and ``G^T`` in FP64 from device memory for the two FP64
 products, and takes the rho sentinel's max with a shared-memory atomic.
 
-Beside the kernel: its plain PyTorch version (CPU tensors only in the
+Beside each kernel: its plain PyTorch version (CPU tensors only in the
 wrapper; a CUDA tensor launches the kernel or raises) and a launch count
-(``rod_shape_refined_kernel.launches``).
+(``rod_shape_refined_kernel.launches``, ``rod_shape_refined_kernel_bc.launches``
+and their wide twins).
 """
 
 from __future__ import annotations
@@ -56,7 +65,9 @@ from . import build
 from . import rod_kernel as rk
 
 __all__ = ["rod_shape_refined_kernel", "rod_shape_refined_kernel_wide",
-           "rod_shape_refined_plain", "build_library", "build_wide_library"]
+           "rod_shape_refined_plain", "rod_shape_refined_kernel_bc",
+           "rod_shape_refined_kernel_bc_wide", "rod_shape_refined_bc_plain",
+           "build_library", "build_wide_library"]
 
 _I, _P, _D = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 _SIGNATURES = {
@@ -64,9 +75,15 @@ _SIGNATURES = {
     # din64, iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo, stream
     "rod_shape_refined": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _I, _D, _P, _P, _P, _P, _P],
+    # qes_hi, qes_lo, q0_hi, q0_lo, r0_hi, r0_lo, B, npts, P, na, ne, g32,
+    # gvec32, g64, dn64, ptab64, din64, gvec64, iters, corr_iters,
+    # rho2_limit, q_hi, q_lo, r_hi, r_lo, stream
+    "rod_shape_refined_bc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P],
 }
 # Same arguments, with the transposed operators G^T (f32, f64) and Dn_NN^T.
-_WIDE_SIGNATURES = {"rod_shape_refined_wide": _SIGNATURES["rod_shape_refined"]}
+_WIDE_SIGNATURES = {"rod_shape_refined_wide": _SIGNATURES["rod_shape_refined"],
+                    "rod_shape_refined_bc_wide": _SIGNATURES["rod_shape_refined_bc"]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +107,7 @@ class RefinedConstants:
     dn64: torch.Tensor     # (P, P) Dn_NN
     ptab64: torch.Tensor   # (P, ne) basis table
     din64: torch.Tensor    # (P,) dn_in
+    gvec64: torch.Tensor   # (P,) -G dn_in: G rhs for q0 = (1,0,0,0) (K5's r0 term)
     g64t: torch.Tensor | None    # (P, P) G^T, wide grids only
     dn64t: torch.Tensor | None   # (P, P) Dn_NN^T, wide grids only
 
@@ -106,6 +124,7 @@ def _constants(cfg: RodConfig, device: torch.device) -> RefinedConstants:
         dn64=rk.padded(dn_nn, (p, p), f64, device),
         ptab64=rk.padded(table, (p, cfg.ne), f64, device),
         din64=rk.padded(dn_in, (p,), f64, device),
+        gvec64=rk.padded(-(ginv @ dn_in), (p,), f64, device),
         g64t=rk.padded(ginv.T, (p, p), f64, device) if wide else None,
         dn64t=rk.padded(dn_nn.T, (p, p), f64, device) if wide else None,
     )
@@ -120,37 +139,58 @@ def _rho2_limit(check_rho: float | None, cfg: RodConfig) -> float:
     return -1.0 if check_rho is None else float((check_rho / cfg.length) ** 2)
 
 
-def rod_shape_refined_plain(qes: torch.Tensor, qes_lo: torch.Tensor | None = None,
-                            cfg: RodConfig = RodConfig(), iters: int = 20,
-                            corr_iters: int = 20, check_rho: float | None = 5.0):
-    """Plain PyTorch version of K3 (same math, any device)."""
+def _pair64(hi: torch.Tensor, lo: torch.Tensor | None) -> torch.Tensor:
+    return hi.to(torch.float64) if lo is None else dd.join_f64(hi, lo)
+
+
+def rod_shape_refined_bc_plain(qes: torch.Tensor, q_init: torch.Tensor | None,
+                               r_init: torch.Tensor | None,
+                               qes_lo: torch.Tensor | None = None,
+                               q_init_lo: torch.Tensor | None = None,
+                               r_init_lo: torch.Tensor | None = None,
+                               cfg: RodConfig = RodConfig(), iters: int = 20,
+                               corr_iters: int = 20, check_rho: float | None = 5.0):
+    """Plain PyTorch version of K5 (same math, any device).  ``None`` for
+    ``q_init``/``r_init`` stands for the demo values ``(1,0,0,0)``/``0``."""
     c = constants(cfg, qes.device)
     n1 = c.f32.npts
-    g32 = c.f32.g[:n1, :n1]
-    qe64 = qes.to(torch.float64)
-    if qes_lo is not None:
-        qe64 = qe64 + qes_lo.to(torch.float64)
-    k64 = basis_ops.strain_at_points(qe64, c.ptab64[:n1])
+    g32, gvec32 = c.f32.g[:n1, :n1], c.f32.gvec[:n1]
+    k64 = basis_ops.strain_at_points(_pair64(qes, qes_lo), c.ptab64[:n1])
     kh64 = 0.5 * k64[..., :3]
     kh32 = kh64.to(torch.float32)
 
-    s = rk.picard_plain(g32, kh32, rk.demo_g_rhs(c.f32.gvec[:n1], qes.shape[0]), iters)
+    g_rhs = (rk.demo_g_rhs(gvec32, qes.shape[0]) if q_init is None
+             else gvec32[:, None] * q_init[:, None, :])
+    s = rk.picard_plain(g32, kh32, g_rhs, iters)
     limit = _rho2_limit(check_rho, cfg)
     bad = (kh32 * kh32).sum(-1).amax(-1) > limit if limit >= 0 else None
 
     s64 = s.to(torch.float64)
-    rhs64 = torch.zeros_like(s64)
-    rhs64[..., 0] = -c.din64[:n1]
+    if q_init is None:
+        rhs64 = torch.zeros_like(s64)
+        rhs64[..., 0] = -c.din64[:n1]
+    else:
+        rhs64 = -c.din64[:n1, None] * _pair64(q_init, q_init_lo)[:, None, :]
     res = rhs64 - torch.matmul(c.dn64[:n1, :n1], s64) + quat_skew_apply(kh64, s64)
     delta = rk.picard_plain(g32, kh32, torch.matmul(g32, res.to(torch.float32)), corr_iters)
     x64 = s64 + delta.to(torch.float64)
 
     b64 = rod_tangent(x64, k64[..., 3:6] if cfg.na == 6 else None)
     r64 = torch.matmul(c.g64[:n1, :n1], b64)
+    if r_init is not None:
+        r64 = r64 + c.gvec64[:n1, None] * _pair64(r_init, r_init_lo)[:, None, :]
     outs = [*dd.split_f64(x64), *dd.split_f64(r64)]
     if bad is not None:
         outs = [o.masked_fill(bad[:, None, None], float("nan")) for o in outs]
     return tuple(outs)
+
+
+def rod_shape_refined_plain(qes: torch.Tensor, qes_lo: torch.Tensor | None = None,
+                            cfg: RodConfig = RodConfig(), iters: int = 20,
+                            corr_iters: int = 20, check_rho: float | None = 5.0):
+    """Plain PyTorch version of K3: K5's with the demo boundary values."""
+    return rod_shape_refined_bc_plain(qes, None, None, qes_lo, cfg=cfg, iters=iters,
+                                      corr_iters=corr_iters, check_rho=check_rho)
 
 
 def _check_inputs(qes, qes_lo, cfg: RodConfig):
@@ -166,8 +206,22 @@ def _check_inputs(qes, qes_lo, cfg: RodConfig):
     return qes, qes_lo
 
 
+def _check_bc(qes, q_init, r_init, qes_lo, q_init_lo, r_init_lo, cfg: RodConfig):
+    """Validated K5 inputs: the strain pair, then the boundary pairs ``(q0_hi,
+    q0_lo, r0_hi, r0_lo)`` as ``(B, 4)``/``(B, 3)`` f32 (low words may be
+    ``None``)."""
+    qes, qes_lo = _check_inputs(qes, qes_lo, cfg)
+    bc = tuple(None if v is None else rk.check_state(v, qes, dim, what)
+               for v, dim, what in ((q_init, 4, "q_init"), (q_init_lo, 4, "q_init_lo"),
+                                    (r_init, 3, "r_init"), (r_init_lo, 3, "r_init_lo")))
+    if bc[0] is None or bc[2] is None:
+        raise ValueError("rod_shape_refined_kernel_bc needs q_init and r_init")
+    return qes, qes_lo, bc
+
+
 def _launch(entry, qes, qes_lo, cfg: RodConfig, iters: int, corr_iters: int,
-            check_rho: float | None, what: str):
+            check_rho: float | None, what: str, bc: tuple | None = None):
+    """One K3 launch, or K5 with ``bc = (q0_hi, q0_lo, r0_hi, r0_lo)``."""
     c = constants(cfg, qes.device)
     b, n1 = qes.shape[0], c.f32.npts
     q = torch.empty((2, b, n1, 4), dtype=torch.float32, device=qes.device)
@@ -177,10 +231,12 @@ def _launch(entry, qes, qes_lo, cfg: RodConfig, iters: int, corr_iters: int,
     else:
         g32, g64, dn64 = c.f32.g, c.g64, c.dn64
     p = build.ptr
+    states = () if bc is None else tuple(map(p, bc))
+    gvec64 = () if bc is None else (p(c.gvec64),)
     with torch.cuda.device(qes.device):
         err = entry(
-            p(qes), p(qes_lo), b, n1, c.f32.p, cfg.na, cfg.ne, p(g32),
-            p(c.f32.gvec), p(g64), p(dn64), p(c.ptab64), p(c.din64),
+            p(qes), p(qes_lo), *states, b, n1, c.f32.p, cfg.na, cfg.ne, p(g32),
+            p(c.f32.gvec), p(g64), p(dn64), p(c.ptab64), p(c.din64), *gvec64,
             int(iters), int(corr_iters), _rho2_limit(check_rho, cfg),
             p(q[0]), p(q[1]), p(r[0]), p(r[1]), build.stream_of(qes))
     build.check_launch(err, what)
@@ -229,3 +285,58 @@ def rod_shape_refined_kernel_wide(qes, qes_lo=None, cfg: RodConfig = RodConfig(n
 
 
 rod_shape_refined_kernel_wide.launches = 0
+
+
+def rod_shape_refined_kernel_bc(qes, q_init, r_init, qes_lo=None, q_init_lo=None,
+                                r_init_lo=None, cfg: RodConfig = RodConfig(),
+                                iters: int = 20, corr_iters: int = 20,
+                                tile: int | None = None, check_rho: float | None = 5.0):
+    """Fully fused refined solve with per-rod boundary conditions (K5).
+
+    ``qes (B, na*ne)``, ``q_init (B, 4)``, ``r_init (B, 3)``, each with an
+    optional f32 low word carrying f64-grade input (junction states of a
+    chain) -> ``(q_hi, q_lo, r_hi, r_lo)``, each ``(B, n-1, dim)`` f32.  As
+    :func:`rod_shape_refined_kernel`, with the rho limit ``check_rho / L``
+    of this grid's length.  ``tile`` is accepted so that calls written for
+    the JAX package run unchanged, and ignored.  Grids with
+    32 < n-1 <= 512 go to K5 wide (:func:`rod_shape_refined_kernel_bc_wide`).
+    """
+    if tile is not None and int(tile) <= 0:
+        raise ValueError(f"tile must be positive, got {tile}")
+    qes, qes_lo, bc = _check_bc(qes, q_init, r_init, qes_lo, q_init_lo, r_init_lo, cfg)
+    if rk.is_wide(cfg.n - 1):
+        return rod_shape_refined_kernel_bc_wide(qes, *bc[::2], qes_lo, *bc[1::2], cfg=cfg,
+                                                iters=iters, corr_iters=corr_iters,
+                                                check_rho=check_rho)
+    if not rk.on_cuda(qes, "rod_shape_refined_kernel_bc"):
+        return rod_shape_refined_bc_plain(qes, *bc[::2], qes_lo, *bc[1::2], cfg=cfg,
+                                          iters=iters, corr_iters=corr_iters,
+                                          check_rho=check_rho)
+    outs = _launch(build_library().rod_shape_refined_bc, qes, qes_lo, cfg, iters, corr_iters,
+                   check_rho, "rod_shape_refined_kernel_bc", bc)
+    rod_shape_refined_kernel_bc.launches += 1
+    return outs
+
+
+rod_shape_refined_kernel_bc.launches = 0
+
+
+def rod_shape_refined_kernel_bc_wide(qes, q_init, r_init, qes_lo=None, q_init_lo=None,
+                                     r_init_lo=None, cfg: RodConfig = RodConfig(n=64),
+                                     iters: int = 20, corr_iters: int = 20,
+                                     check_rho: float | None = 5.0):
+    """K5 wide: :func:`rod_shape_refined_kernel_bc` on grids with
+    32 < n-1 <= 512 (``csrc/refined_wide_kernel.cu``)."""
+    rk._check_width(cfg, True, "rod_shape_refined_kernel_bc_wide")
+    qes, qes_lo, bc = _check_bc(qes, q_init, r_init, qes_lo, q_init_lo, r_init_lo, cfg)
+    if not rk.on_cuda(qes, "rod_shape_refined_kernel_bc_wide"):
+        return rod_shape_refined_bc_plain(qes, *bc[::2], qes_lo, *bc[1::2], cfg=cfg,
+                                          iters=iters, corr_iters=corr_iters,
+                                          check_rho=check_rho)
+    outs = _launch(build_wide_library().rod_shape_refined_bc_wide, qes, qes_lo, cfg, iters,
+                   corr_iters, check_rho, "rod_shape_refined_kernel_bc_wide", bc)
+    rod_shape_refined_kernel_bc_wide.launches += 1
+    return outs
+
+
+rod_shape_refined_kernel_bc_wide.launches = 0

@@ -1,4 +1,5 @@
-"""K1 and K2: the fused f32 rod solve and its general right-hand-side solve.
+"""K1, K2 and K4: the fused f32 rod solve, its general right-hand-side solve,
+and the fused solve with per-rod boundary values.
 
 Sources: ``csrc/rod_kernel.cu`` (narrow grids, n-1 <= 32) and
 ``csrc/rod_wide_kernel.cu`` (wide grids, 32 < n-1 <= 512).  They replace the
@@ -13,10 +14,17 @@ TPU's tiles:
 * K2 ``picard_correction_fused`` (body ``_corr_kernel``): the same Picard
   operator for a per-rod right-hand side, ``(I ⊗ Dn_NN - 1/2 A_hat) x = rhs``,
   reading only the 3 curvature components of ``qe``;
-* K1 wide ``rod_shape_fused_wide`` and K2 wide ``picard_correction_fused_wide``
-  (bodies ``_kernel_wide``/``_kernel_pair`` and ``_corr_kernel_wide``/
-  ``_corr_kernel_pair``): the same functions on wide grids.  The public
-  ``rod_shape_fused`` and ``picard_correction_fused`` route there.
+* K4 ``rod_shape_fused_bc`` (body ``_kernel_bc``): K1 with per-rod boundary
+  values ``q0 (B, 4)`` and ``r0 (B, 3)``, the building block of the fused
+  multi-segment chains.  ``G (-dn_in ⊗ q0) = gvec ⊗ q0`` with K1's constant
+  ``gvec = G (-dn_in)``, so K4 is K1 started from ``gvec ⊗ q0`` whose
+  position ends with ``+ gvec ⊗ r0``; one CUDA body serves both;
+* K1 wide ``rod_shape_fused_wide``, K2 wide ``picard_correction_fused_wide``
+  and K4 wide ``rod_shape_fused_bc_wide`` (bodies ``_kernel_wide``/
+  ``_kernel_pair``, ``_corr_kernel_wide``/``_corr_kernel_pair`` and
+  ``_kernel_wide_bc``/``_kernel_pair_bc``): the same functions on wide
+  grids.  The public ``rod_shape_fused``, ``picard_correction_fused`` and
+  ``rod_shape_fused_bc`` route there.
 
 What bounds them on an H100: at N=16 a rod costs about 20 x (15*15*4 +
 15*12) = 21,600 FP32 FMAs against ~456 bytes of device traffic (9 floats
@@ -62,6 +70,7 @@ from ...models.rod import RodConfig
 from . import build
 
 __all__ = ["rod_shape_fused", "rod_shape_fused_plain", "rod_shape_fused_wide",
+           "rod_shape_fused_bc", "rod_shape_fused_bc_plain", "rod_shape_fused_bc_wide",
            "picard_correction_fused", "picard_correction_plain",
            "picard_correction_fused_wide", "PRECISIONS", "MAX_POINTS",
            "NARROW_POINTS", "build_library", "build_wide_library"]
@@ -76,11 +85,14 @@ _SIGNATURES = {
     "rod_shape_fused_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     # qes, B, npts, P, nq, ne, g, ptab, rhs, iters, x_out, stream
     "picard_correction_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # qes, q0, r0, B, npts, P, na, ne, g, ptab, gvec, iters, q_out, r_out, stream
+    "rod_shape_fused_bc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
 }
 # Same arguments, with G^T in place of G.
 _WIDE_SIGNATURES = {
     "rod_shape_fused_wide_f32": _SIGNATURES["rod_shape_fused_f32"],
     "picard_correction_wide_f32": _SIGNATURES["picard_correction_f32"],
+    "rod_shape_fused_bc_wide_f32": _SIGNATURES["rod_shape_fused_bc_f32"],
 }
 
 
@@ -195,16 +207,28 @@ def demo_g_rhs(gvec: torch.Tensor, batch: int) -> torch.Tensor:
     return g_rhs
 
 
-def rod_shape_fused_plain(qes: torch.Tensor, cfg: RodConfig = RodConfig(),
-                          iters: int = 20):
-    """Plain PyTorch version of K1 (same math, any device)."""
+def rod_shape_fused_bc_plain(qes: torch.Tensor, q_init: torch.Tensor | None,
+                             r_init: torch.Tensor | None, cfg: RodConfig = RodConfig(),
+                             iters: int = 20):
+    """Plain PyTorch version of K4 (same math, any device): the Picard
+    solve from ``G rhs = gvec ⊗ q0`` and the position ``G b + gvec ⊗ r0``.
+    ``None`` stands for the demo values ``q0 = (1,0,0,0)``, ``r0 = 0``."""
     c = constants(cfg, qes.device)
     n1 = c.npts
-    g = c.g[:n1, :n1]
+    g, gvec = c.g[:n1, :n1], c.gvec[:n1]
     k = basis_ops.strain_at_points(qes, c.ptab[:n1])
-    s = picard_plain(g, 0.5 * k[..., :3], demo_g_rhs(c.gvec[:n1], qes.shape[0]), iters)
+    g_rhs = (demo_g_rhs(gvec, qes.shape[0]) if q_init is None
+             else gvec[:, None] * q_init[:, None, :])
+    s = picard_plain(g, 0.5 * k[..., :3], g_rhs, iters)
     b = rod_tangent(s, k[..., 3:6] if cfg.na == 6 else None)
-    return s, torch.matmul(g, b)
+    r = torch.matmul(g, b)
+    return s, r if r_init is None else r + gvec[:, None] * r_init[:, None, :]
+
+
+def rod_shape_fused_plain(qes: torch.Tensor, cfg: RodConfig = RodConfig(),
+                          iters: int = 20):
+    """Plain PyTorch version of K1: K4's with the demo boundary values."""
+    return rod_shape_fused_bc_plain(qes, None, None, cfg, iters)
 
 
 def picard_correction_plain(qes: torch.Tensor, rhs: torch.Tensor,
@@ -233,14 +257,15 @@ def _check_width(cfg: RodConfig, wide: bool, what: str) -> None:
 
 
 def _launch_fused(entry, gmat, qes: torch.Tensor, cfg: RodConfig, c: KernelConstants,
-                  iters: int, what: str):
+                  iters: int, what: str, bc: tuple = ()):
+    """One K1 launch, or K4 with ``bc = (q0, r0)`` passed after ``qes``."""
     b = qes.shape[0]
     q = torch.empty((b, c.npts, 4), dtype=torch.float32, device=qes.device)
     r = torch.empty((b, c.npts, 3), dtype=torch.float32, device=qes.device)
     with torch.cuda.device(qes.device):
-        err = entry(build.ptr(qes), b, c.npts, c.p, cfg.na, cfg.ne, build.ptr(gmat),
-                    build.ptr(c.ptab), build.ptr(c.gvec), int(iters), build.ptr(q),
-                    build.ptr(r), build.stream_of(qes))
+        err = entry(build.ptr(qes), *map(build.ptr, bc), b, c.npts, c.p, cfg.na, cfg.ne,
+                    build.ptr(gmat), build.ptr(c.ptab), build.ptr(c.gvec), int(iters),
+                    build.ptr(q), build.ptr(r), build.stream_of(qes))
     build.check_launch(err, what)
     return q, r
 
@@ -289,6 +314,69 @@ def rod_shape_fused_wide(qes, cfg: RodConfig = RodConfig(n=64), iters: int = 20,
 
 
 rod_shape_fused_wide.launches = 0
+
+
+def check_state(v, like: torch.Tensor, dim: int, what: str) -> torch.Tensor:
+    """A per-rod boundary value ``(B, dim)`` as a contiguous f32 tensor on
+    ``like``'s device (16-byte aligned for the kernels' vector loads)."""
+    v = torch.as_tensor(v).to(device=like.device, dtype=torch.float32).contiguous()
+    if tuple(v.shape) != (like.shape[0], dim):
+        raise ValueError(f"{what} must be ({like.shape[0]}, {dim}), got {tuple(v.shape)}")
+    if like.device.type == "cuda" and v.data_ptr() % 16:
+        v = v.clone()
+    return v
+
+
+def _check_bc(qes, q_init, r_init, cfg: RodConfig, precision: str):
+    if cfg.na not in (3, 6):
+        raise ValueError("rod_shape_fused_bc supports na in (3, 6)")
+    qes = check_qes(qes, cfg, precision)
+    return (qes, check_state(q_init, qes, 4, "q_init"),
+            check_state(r_init, qes, 3, "r_init"))
+
+
+def rod_shape_fused_bc(qes, q_init, r_init, cfg: RodConfig = RodConfig(),
+                       iters: int = 20, precision: str = "high"):
+    """Fused rod solve with per-rod boundary conditions (K4).
+
+    ``qes (B, na*ne)``, ``q_init (B, 4)``, ``r_init (B, 3)`` ->
+    ``(Q (B, n-1, 4), r (B, n-1, 3))``, f32.  Same semantics as
+    ``rod_shape(..., method='picard')`` with arbitrary initial states (``q0``
+    is not normalised): the building block of the fused multi-segment chains.
+    CUDA tensors run the kernel, CPU tensors its plain version.  Grids with
+    32 < n-1 <= 512 go to K4 wide (:func:`rod_shape_fused_bc_wide`).
+    """
+    qes, q0, r0 = _check_bc(qes, q_init, r_init, cfg, precision)
+    if is_wide(cfg.n - 1):
+        return rod_shape_fused_bc_wide(qes, q0, r0, cfg, iters, precision)
+    if not on_cuda(qes, "rod_shape_fused_bc"):
+        return rod_shape_fused_bc_plain(qes, q0, r0, cfg, iters)
+    c = constants(cfg, qes.device)
+    q, r = _launch_fused(build_library().rod_shape_fused_bc_f32, c.g, qes, cfg, c, iters,
+                         "rod_shape_fused_bc", (q0, r0))
+    rod_shape_fused_bc.launches += 1
+    return q, r
+
+
+rod_shape_fused_bc.launches = 0
+
+
+def rod_shape_fused_bc_wide(qes, q_init, r_init, cfg: RodConfig = RodConfig(n=64),
+                            iters: int = 20, precision: str = "high"):
+    """K4 wide: :func:`rod_shape_fused_bc` on grids with 32 < n-1 <= 512
+    (``csrc/rod_wide_kernel.cu``)."""
+    _check_width(cfg, True, "rod_shape_fused_bc_wide")
+    qes, q0, r0 = _check_bc(qes, q_init, r_init, cfg, precision)
+    if not on_cuda(qes, "rod_shape_fused_bc_wide"):
+        return rod_shape_fused_bc_plain(qes, q0, r0, cfg, iters)
+    c = constants(cfg, qes.device)
+    q, r = _launch_fused(build_wide_library().rod_shape_fused_bc_wide_f32, c.gt, qes, cfg, c,
+                         iters, "rod_shape_fused_bc_wide", (q0, r0))
+    rod_shape_fused_bc_wide.launches += 1
+    return q, r
+
+
+rod_shape_fused_bc_wide.launches = 0
 
 
 def _check_rhs(qes: torch.Tensor, rhs, cfg: RodConfig, what: str) -> torch.Tensor:

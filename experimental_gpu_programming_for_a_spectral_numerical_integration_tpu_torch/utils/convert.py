@@ -13,10 +13,13 @@ import torch
 
 from ..models.cosserat import StaticsConfig
 from ..models.rod import RodConfig
+from ..models.segment_statics import SegmentedStaticsConfig
+from ..models.segments import SegmentedRodConfig
 from ..ops.collocation import SpectralGrid
 from ..ops.device import canonical_device
 
-__all__ = ["rod_config_from_jax", "statics_config_from_jax", "grid_from_numpy"]
+__all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_config_from_jax",
+           "segmented_statics_config_from_jax", "grid_from_numpy"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -41,6 +44,22 @@ def statics_config_from_jax(cfg) -> StaticsConfig:
                          kappa0=_floats(cfg.kappa0),
                          distributed_force=_floats(cfg.distributed_force),
                          follower=bool(cfg.follower))
+
+
+def segmented_rod_config_from_jax(cfg) -> SegmentedRodConfig:
+    """The port's :class:`SegmentedRodConfig` from any object with the JAX
+    ``SegmentedRodConfig``'s field ``segments`` (rod configurations)."""
+    return SegmentedRodConfig(segments=tuple(rod_config_from_jax(s) for s in cfg.segments))
+
+
+def segmented_statics_config_from_jax(cfg) -> SegmentedStaticsConfig:
+    """The port's :class:`SegmentedStaticsConfig` from any object with the
+    JAX ``SegmentedStaticsConfig``'s fields ``rods``, ``stiffness``,
+    ``kappa0``, ``follower`` and ``tendons`` (tendons raise
+    ``NotImplementedError`` in the port)."""
+    return SegmentedStaticsConfig(rods=segmented_rod_config_from_jax(cfg.rods),
+                                  stiffness=_floats(cfg.stiffness), kappa0=_floats(cfg.kappa0),
+                                  follower=bool(cfg.follower), tendons=tuple(cfg.tendons))
 
 
 def grid_from_numpy(points, dn, dn_nn, dn_in, ginv, device=None) -> SpectralGrid:

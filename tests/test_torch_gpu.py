@@ -1,5 +1,6 @@
-"""On-card checks of the CUDA kernels against their plain versions: K1-K3
-narrow and wide, and the statics Newton that runs on them.
+"""On-card checks of the CUDA kernels against their plain versions: K1-K5
+narrow and wide, and the statics Newtons (single rod and segmented) that run
+on them.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -14,6 +15,8 @@ import torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     cosserat,
     rod,
+    segment_statics,
+    segments,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
     doubledouble as dd,
@@ -124,3 +127,65 @@ def test_statics_batched_matches_per_sample(cuda, n):
                         + rk.picard_correction_fused_wide.launches)
     ref = cosserat.solve_statics(loads, cfg=cfg, tol=1e-5, max_iter=12, iters=16)
     torch.testing.assert_close(new.qe, ref.qe, atol=2e-5, rtol=0)
+
+
+def _inits(cuda, b, seed):
+    rng = np.random.default_rng(seed)
+    q0 = rng.standard_normal((b, 4))
+    q0 /= np.linalg.norm(q0, axis=-1, keepdims=True)
+    return (dd.split_f64(torch.tensor(q0, device=cuda)),
+            dd.split_f64(torch.tensor(rng.uniform(-1.0, 1.0, (b, 3)), device=cuda)))
+
+
+@pytest.mark.parametrize("n,na", [(8, 3), (16, 6), (33, 3), (34, 6), (65, 3), (256, 3),
+                                  (513, 6)])
+def test_bc_kernels_match_plain(cuda, n, na):
+    """K4 and K5, narrow and wide, with random unit q0 and r0 ~ U(-1, 1)."""
+    b = B if n < 200 else 203
+    cfg = rod.RodConfig(n=n, na=na)
+    hi, lo = _qes(cuda, na, 200 + n)
+    hi, lo = hi[:b].contiguous(), lo[:b].contiguous()
+    (qh, ql), (rh, rl) = _inits(cuda, b, n)
+    wide = rk.is_wide(n - 1)
+    k4 = rk.rod_shape_fused_bc_wide if wide else rk.rod_shape_fused_bc
+    k5 = rfk.rod_shape_refined_kernel_bc_wide if wide else rfk.rod_shape_refined_kernel_bc
+    before = (k4.launches, k5.launches)
+    q, r = rk.rod_shape_fused_bc(hi, qh, rh, cfg)
+    qp, rp = rk.rod_shape_fused_bc_plain(hi, qh, rh, cfg)
+    torch.testing.assert_close(q, qp, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(r, rp, atol=F32_TOL, rtol=0)
+    outs = rfk.rod_shape_refined_kernel_bc(hi, qh, rh, lo, ql, rl, cfg=cfg)
+    plain = rfk.rod_shape_refined_bc_plain(hi, qh, rh, lo, ql, rl, cfg=cfg)
+    assert (k4.launches, k5.launches) == (before[0] + 1, before[1] + 1)
+    for a, p in ((outs[:2], plain[:2]), (outs[2:], plain[2:])):
+        torch.testing.assert_close(dd.join_f64(*a), dd.join_f64(*p), atol=K3_TOL, rtol=0)
+
+
+def test_segmented_statics_batched_matches_per_sample(cuda):
+    """The segmented Newton on K4/K2 against the per-sample jacfwd Newton
+    (tests/test_segment_statics.py:154-170), and its dd-residual form on K5
+    with the configuration and loads of tests/test_segment_statics.py:213-236."""
+    cfg = segment_statics.SegmentedStaticsConfig(rods=segments.uniform_segments(2, n=16),
+                                                 stiffness=((1.0, 2.0, 2.0), (1.0, 1.0, 1.0)))
+    loads = torch.tensor(np.random.default_rng(1).uniform(-0.4, 0.4, (32, 3)),
+                         dtype=torch.float32, device=cuda)
+    before = (rk.rod_shape_fused_bc.launches, rk.picard_correction_fused.launches)
+    new = segment_statics.solve_segmented_statics_batched(loads, cfg=cfg, tol=1e-5,
+                                                          max_iter=10, iters=16, jac_iters=8)
+    assert new.converged.all()
+    assert before[0] < rk.rod_shape_fused_bc.launches
+    assert before[1] < rk.picard_correction_fused.launches
+    ref = segment_statics.solve_segmented_statics(loads[:8].double(), cfg=cfg, tol=1e-11)
+    torch.testing.assert_close(new.qe[:8].double(), ref.qe, atol=2e-5, rtol=0)
+    k5 = rfk.rod_shape_refined_kernel_bc.launches
+    cfg = segment_statics.SegmentedStaticsConfig(rods=segments.uniform_segments(2, n=16),
+                                                 stiffness=((1.0, 1.0, 1.3), (1.0, 0.7, 1.0)))
+    loads = torch.tensor([[0.0, 0.0, 0.5], [0.2, 0.0, 0.3]], device=cuda)
+    dd_sol = segment_statics.solve_segmented_statics_batched(
+        loads, cfg=cfg, tol=1e-9, max_iter=14, iters=20, jac_iters=10, dd_residual=True,
+        dd_iters=22)
+    assert dd_sol.converged.all() and rfk.rod_shape_refined_kernel_bc.launches > k5
+    ref = segment_statics.solve_segmented_statics(loads.double(), cfg=cfg, tol=1e-12,
+                                                  max_iter=40)
+    torch.testing.assert_close(dd_sol.qe.double() + dd_sol.qe_lo.double(), ref.qe, atol=1e-10,
+                               rtol=0)

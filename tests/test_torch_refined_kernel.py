@@ -1,10 +1,12 @@
-"""Port parity: K3 (ops/kernels/refined_kernel.py) against the JAX kernel.
+"""Port parity: K3 and K5 (ops/kernels/refined_kernel.py) against the JAX package.
 
 One batch of 16 rods goes through the JAX Pallas kernel in interpret mode
 (as ``tests/test_refined_kernel.py`` runs it) and through the port's plain
 version: rods 0-5 exact f32 strains ``0.8 N(0,1)``, rod 6 the demo strain
 as an f64 pair, rod 7 at the rho = 5 edge of the validity domain, rods 8-9
-far outside it (rho = 8), the rest random again.
+far outside it (rho = 8), the rest random again.  K5 (per-rod boundary
+pairs) is held to the f64 oracle with the same inits, as
+``tests/test_segments.py:118-150`` holds the JAX one.
 """
 
 import numpy as np
@@ -129,3 +131,42 @@ def test_auto_iters_match_jax():
     _, r_ref = _oracle(qe)
     rel = np.abs(sol.positions_f64()[0].numpy() - r_ref).max() / np.abs(r_ref).max()
     assert rel < 1e-8, rel
+
+
+@pytest.mark.parametrize("n", [16, 48])
+def test_k5_matches_oracle_general_inits(n):
+    """K5 and K5 wide at random junction states given as f32 pairs: 1e-9
+    absolute of the oracle with the same inits (tests/test_segments.py:145-150);
+    at the demo values K5 is K3 exactly."""
+    rng = np.random.default_rng(21)
+    qes64 = (1.0 if n == 16 else 0.5) * rng.standard_normal((4, 9))
+    q064 = rng.standard_normal((4, 4))
+    q064 /= np.linalg.norm(q064, axis=-1, keepdims=True)
+    r064 = rng.standard_normal((4, 3))
+    cfg = rod.RodConfig(n=n)
+    (qh, ql), (q0h, q0l), (r0h, r0l) = (dd.split_f64(torch.tensor(v))
+                                        for v in (qes64, q064, r064))
+    outs = rfk.rod_shape_refined_kernel_bc(qh, q0h, r0h, qes_lo=ql, q_init_lo=q0l,
+                                           r_init_lo=r0l, cfg=cfg, tile=64)
+    q, r = dd.join_f64(*outs[:2]).numpy(), dd.join_f64(*outs[2:]).numpy()
+    for i in range(4):
+        q_ref, r_ref = oracle.integrate_position(qes64[i], q_init=q064[i], r_init=r064[i], n=n)
+        assert np.abs(q[i].T.reshape(-1) - q_ref).max() < 1e-9
+        assert np.abs(r[i] - r_ref).max() < 1e-9
+    demo = rfk.rod_shape_refined_kernel_bc(qh, torch.tensor([[1.0, 0, 0, 0]] * 4),
+                                           torch.zeros((4, 3)), qes_lo=ql, cfg=cfg)
+    for a, b in zip(demo, rfk.rod_shape_refined_kernel(qh, ql, cfg)):
+        assert torch.equal(a, b)
+
+
+def test_k5_rho_limit_is_per_segment():
+    """|K| = 16 is rho = 8 on a unit rod (NaN) but rho = 4 on a segment of
+    length 1/2 (kept): the limit is check_rho / L of the kernel's grid."""
+    qe = torch.zeros((2, 9))
+    qe[:, 3] = 16.0
+    q0, r0 = torch.tensor([[1.0, 0, 0, 0]] * 2), torch.zeros((2, 3))
+    long_rod = rfk.rod_shape_refined_kernel_bc(qe, q0, r0)
+    half = rfk.rod_shape_refined_kernel_bc(qe, q0, r0, cfg=rod.RodConfig(length=0.5),
+                                           iters=30, corr_iters=30)
+    assert all(torch.isnan(o).all() for o in long_rod)
+    assert all(torch.isfinite(o).all() for o in half)

@@ -134,11 +134,16 @@ def test_quaternion_kinematics_and_demo_match_jax(ref):
 
 
 def test_fused_guards():
+    """The fused path keeps the unnormalized semantics; custom boundary
+    values (broadcast over the batch) run through K4: a straight rod from
+    r0 = (1, 1, 1)."""
     qes = torch.zeros((4, 9))
     with pytest.raises(NotImplementedError, match="unnormalized"):
         rod.rod_shape(qes, method="fused", normalize_quaternions=True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        rod.rod_shape(qes, method="fused", r_init=torch.ones(3))
+    sol = rod.rod_shape(qes, method="fused", r_init=torch.ones(3))
+    x = torch.tensor(rod.RodConfig().points[:-1], dtype=torch.float32)
+    straight = torch.stack([x + 1.0, torch.ones_like(x), torch.ones_like(x)], dim=-1)
+    torch.testing.assert_close(sol.positions, straight.expand(4, 15, 3), atol=2e-6, rtol=0)
     with pytest.raises(ValueError, match="512"):
         rod.rod_shape_refined_fused(torch.zeros((4, 9)), cfg=rod.RodConfig(n=514),
                                     refine_steps=1)

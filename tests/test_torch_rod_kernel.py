@@ -1,15 +1,18 @@
-"""Port parity: K1 and K2 (ops/kernels/rod_kernel.py) against the JAX kernels.
+"""Port parity: K1, K2 and K4 (ops/kernels/rod_kernel.py) against the JAX package.
 
-On the CPU the wrappers run their plain PyTorch versions; those are held
-to the JAX Pallas kernels run in interpret mode at ``precision='highest'``
-(full f32 products), as ``tests/test_pallas_kernel.py`` runs them.  The
-CUDA kernels themselves are compared with these plain versions on the card
-by ``chip_smoke.py``.
+On the CPU the wrappers run their plain PyTorch versions; K1 and K2 are
+held to the JAX Pallas kernels run in interpret mode at
+``precision='highest'`` (full f32 products), as ``tests/test_pallas_kernel.py``
+runs them.  K4 is held to the JAX picard solve with the same boundary values
+(its Pallas kernel carries bf16x3 error even in interpret mode).  The CUDA
+kernels themselves are compared with these plain versions on the card by
+``chip_smoke.py``.
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.models import rod as jrod
@@ -137,3 +140,39 @@ def test_every_precision_is_fp32():
     outs = [rk.rod_shape_fused(qes, precision=p)[1] for p in rk.PRECISIONS]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+@jax.jit
+def _jax_picard_bc(qe16, qe48, q0, r0):
+    """The JAX picard solve with per-rod inits on a narrow and a wide grid."""
+    return [(sol.quaternions, sol.positions) for sol in (
+        jrod.rod_shape(qe, q0, r0, cfg=jrod.RodConfig(n=n), method="picard", iters=24)
+        for qe, n in ((qe16, 16), (qe48, 48)))]
+
+
+def test_k4_plain_matches_jax_picard_general_inits():
+    """K4 and K4 wide (n=48) with random unit q0 and r0 ~ U(-1, 1) at the
+    f32 fused gate (tests/test_pallas_kernel.py:91); the per-rod values do
+    not leak between rods; at the demo values K4 is K1 exactly."""
+    rng = np.random.default_rng(4)
+    qe16, qe48 = (rng.standard_normal((5, 9)).astype(np.float32) for _ in range(2))
+    q0 = rng.standard_normal((5, 4))
+    q0 = (q0 / np.linalg.norm(q0, axis=-1, keepdims=True)).astype(np.float32)
+    r0 = rng.uniform(-1.0, 1.0, (5, 3)).astype(np.float32)
+    refs = _jax_picard_bc(*map(jnp.asarray, (qe16, qe48, q0, r0)))
+    for qe, n, (jq, jr) in zip((qe16, qe48), (16, 48), refs):
+        cfg = rod.RodConfig(n=n)
+        q, r = rk.rod_shape_fused_bc(torch.tensor(qe), torch.tensor(q0), torch.tensor(r0), cfg,
+                                     iters=24)
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), atol=5e-5)
+        np.testing.assert_allclose(r.numpy(), np.asarray(jr), atol=5e-5)
+        q2, r2 = rk.rod_shape_fused_bc(torch.tensor(qe[2:3]), torch.tensor(q0[2:3]),
+                                       torch.tensor(r0[2:3]), cfg, iters=24)
+        torch.testing.assert_close(q2[0], q[2], atol=1e-7, rtol=0)
+        torch.testing.assert_close(r2[0], r[2], atol=1e-7, rtol=0)
+        demo = rk.rod_shape_fused_bc(torch.tensor(qe), torch.tensor([[1.0, 0, 0, 0]] * 5),
+                                     torch.zeros((5, 3)), cfg)
+        for a, b in zip(demo, rk.rod_shape_fused(torch.tensor(qe), cfg)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="q_init"):
+        rk.rod_shape_fused_bc(torch.zeros((4, 9)), torch.zeros((3, 4)), torch.zeros((4, 3)))

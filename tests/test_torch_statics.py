@@ -1,4 +1,4 @@
-"""Port parity: the statics Newton (models/cosserat.py) and its small solve.
+"""Port parity: the statics Newton (models/cosserat.py).
 
 The same loads (numpy ``default_rng``) go through the JAX package's
 ``solve_statics`` vmapped over the batch (N=16 and n=64, compiled as one
@@ -19,15 +19,9 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.model
     cosserat as jcos,
     rod as jrod,
 )
-from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.ops import (
-    smallsolve as jsmall,
-)
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     cosserat,
     rod,
-)
-from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
-    smallsolve,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
@@ -109,22 +103,6 @@ def test_fused_jacobian_matches_jax_jacfwd():
         torch.tensor(load[None, None], dtype=torch.float32), torch.zeros((1, 1, 3)),
         convert.statics_config_from_jax(jcfg), iters=16)
     assert np.abs(jac[0].double().numpy() - j64).max() < 1e-4 * np.abs(j64).max()
-
-
-def test_gauss_jordan_matches_jax_smallsolve():
-    rng = np.random.default_rng(7)
-    a = rng.standard_normal((8, 9, 9))
-    b = rng.standard_normal((8, 9, 2))
-    # a permutation matrix has zero leading pivots everywhere: pivoting
-    perm = np.stack([np.eye(9)[rng.permutation(9)] for _ in range(8)])
-    v = rng.standard_normal((8, 9))
-    solve = jax.jit(jsmall.gauss_jordan_solve)
-    for aa, bb in ((a, b), (perm, v)):
-        mine = smallsolve.gauss_jordan_solve(torch.tensor(aa), torch.tensor(bb)).numpy()
-        np.testing.assert_allclose(mine, np.asarray(solve(jnp.asarray(aa), jnp.asarray(bb))),
-                                   rtol=0, atol=1e-12)
-        exact = np.linalg.solve(aa, bb if bb.ndim == 3 else bb[..., None])
-        np.testing.assert_allclose(mine, exact.reshape(mine.shape), atol=1e-11)
 
 
 def test_statics_config_from_jax_round_trips():
