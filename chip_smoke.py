@@ -5,7 +5,9 @@ which raises on failure (exit code != 0, no result lines):
 
 1. environment: versions, the card, its power limit, nvcc and triton;
 2. build the CUDA kernels from ``csrc/``, one nvcc per source, all at once:
-   K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512);
+   K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512); registers and
+   spills per kernel, and whether each library's SASS holds tensor-core
+   (HMMA) instructions (the refined wide one must);
 3. each kernel against its plain PyTorch version on the card: narrow at
    N in {8, 16, 33}, wide at n-1 in {33, 63, 64, 65, 128, 255, 512} and a
    ragged batch, na in {3, 6}; K4 and K5 with random unit q0 and
@@ -22,8 +24,10 @@ which raises on failure (exit code != 0, no result lines):
    the chains 3 x n=16 (B=131072) and 2 x n=64 (B=32768) on K4/K4 wide and
    K5/K5 wide against the f64 dense chain, and the segmented statics Newton
    (B=8192; dd residual B=1024) against the per-sample Newton on the CPU;
-5. CUDA-event timings of each kernel beside its plain version, its bound and
-   (K2) the batched ``torch.linalg.solve`` of the same systems, of each path
+5. CUDA-event timings of each kernel beside its plain version, its bound
+   (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
+   cores) and (K2) the batched ``torch.linalg.solve`` of the same systems, of
+   each path
    as a whole call; a torch.profiler breakdown (device busy,
    idle share, top kernels) of the N=16 headline, refined n=256, statics
    N=16, refined 3 x n=16 chain and segmented statics calls.
@@ -35,10 +39,12 @@ result line.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,8 +85,11 @@ GOLDEN_R = (0.562673, 0.0, -0.745914)
 GOLDEN_TOL = 1e-6
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores; FP64 on the tensor cores (DMMA), the higher of the card's two FP64
-# rates, since K3's FP64 work is matrix products; HBM3 bandwidth.
+# rates, since K3's FP64 work is matrix products; HBM3 bandwidth.  The
+# tensor-core bound runs the f32 matrix products as 3xTF32 at the dense TF32
+# peak, three passes for an f32-accurate product.
 F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 67e12, 3.35e12
+TF32X3_PEAK = 495e12 / 3
 
 KERNELS = {
     "K1": dict(name="K1 rod_shape_fused", wrapper=rk.rod_shape_fused,
@@ -154,13 +163,86 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build_fns)) as pool:
         libs = list(pool.map(lambda f: f(), build_fns))
+    cuobjdump = str(Path(build.nvcc_path()).with_name("cuobjdump"))
     for lib in libs:
-        print(f"built {lib._name.split('/')[-1]}: nvcc {lib.build_seconds:.1f} s")
+        sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        hmma = sass.count("HMMA")
+        print(f"built {lib._name.split('/')[-1]}: nvcc {lib.build_seconds:.1f} s; tensor-core "
+              f"(HMMA) instructions in its SASS: {'yes' if hmma else 'no'} ({hmma})")
+        if "refined_wide_kernel" in lib._name and not hmma:
+            raise AssertionError("the refined wide kernels hold no HMMA instruction")
     print(f"all built in {time.perf_counter() - t0:.1f} s (parallel)")
+    rows = []   # (library, mangled kernel, ptxas line)
     for log in sorted(build.BUILD_DIR.glob("*.nvcc.log")):
+        kernel = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                rows.append((log.stem, kernel, line.split(":", 1)[-1].strip()))
+    mangled = sorted({k for _, k, _ in rows})
+    cufilt = str(Path(build.nvcc_path()).with_name("cu++filt"))
+    names = dict(zip(mangled, subprocess.run([cufilt, "-p", *mangled], capture_output=True,
+                                             text=True, check=True, timeout=60).stdout.splitlines()))
+    for lib, kernel, text in rows:
+        print(f"  {lib} {names[kernel]}: {text}")
+
+
+# One m16n8k8 TF32 tile per warp through tc_picard.cuh's own mma_tf32, on
+# row-major a (16 x 8), b (8 x 8) and c (16 x 8): c += a b.
+PROBE_CU = r"""
+#include "tc_picard.cuh"
+__global__ void probe(const float* a, const float* b, float* c, int tiles) {
+    const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32, g = threadIdx.x % 32 / 4,
+              t = threadIdx.x % 4;
+    if (w >= tiles) return;
+    a += w * 128; b += w * 64; c += w * 128;
+    const uint32_t af[4] = {__float_as_uint(a[g * 8 + t]), __float_as_uint(a[g * 8 + 64 + t]),
+                            __float_as_uint(a[g * 8 + t + 4]), __float_as_uint(a[g * 8 + 68 + t])};
+    float* cr[4] = {c + g * 8 + 2 * t, c + g * 8 + 2 * t + 1, c + g * 8 + 64 + 2 * t,
+                    c + g * 8 + 65 + 2 * t};
+    float cf[4] = {*cr[0], *cr[1], *cr[2], *cr[3]};
+    tc::mma_tf32(cf, af, __float_as_uint(b[t * 8 + g]), __float_as_uint(b[t * 8 + 32 + g]));
+    for (int q = 0; q < 4; ++q) *cr[q] = cf[q];
+}
+extern "C" int tc_probe(const float* a, const float* b, float* c, int tiles) {
+    probe<<<(tiles + 7) / 8, 256>>>(a, b, c, tiles);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def phase_accumulation_probe(dev: torch.device) -> None:
+    """How the tensor cores round the FP32 sum of an ``mma.sync`` tile:
+    ``c + a b`` for TF32-exact ``a``, ``b`` against the f64 sum rounded to
+    the nearest f32.  The refined wide kernels sum each k-step's three
+    products in a fresh tile and add it to the state in FP32 because this
+    sum is not rounded to nearest."""
+    src, so = build.BUILD_DIR / "tc_probe.cu", build.BUILD_DIR / "libtc_probe.so"
+    src.write_text(PROBE_CU)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
+                    str(src)], capture_output=True, text=True, check=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    rng, tiles = np.random.default_rng(0), 4096
+
+    def tf32(x):
+        return ((x.astype(np.float32).view(np.int32) + 0x1000) & -0x2000).view(np.float32)
+
+    for what, scale in (("c = 0", 0.0), ("|c| ~ 16 |a b|", 16.0)):
+        a, b = tf32(rng.standard_normal((tiles, 16, 8))), tf32(rng.standard_normal((tiles, 8, 8)))
+        c = (scale * np.sqrt(8) * rng.standard_normal((tiles, 16, 8))).astype(np.float32)
+        exact = np.einsum("tik,tkj->tij", a.astype(np.float64), b.astype(np.float64)) + c
+        ta, tb, tcc = (torch.tensor(v, device=dev) for v in (a, b, c))
+        build.check_launch(lib.tc_probe(*(ctypes.c_void_p(v.data_ptr()) for v in (ta, tb, tcc)),
+                                        tiles), "tc_probe")
+        out = tcc.cpu().numpy().astype(np.float64)
+        rn = exact.astype(np.float32)
+        rz = np.where(np.abs(rn) > np.abs(exact), np.nextafter(rn, np.float32(0)), rn)
+        ulps = (out - exact) * np.sign(exact) / np.spacing(np.abs(rn)).astype(np.float64)
+        print(f"  tensor-core FP32 accumulation ({what}): {(out == rn).mean():.1%} of sums "
+              f"rounded to nearest, {(out == rz).mean():.1%} toward zero; mean error "
+              f"{ulps.mean():+.3f} ulp (toward zero < 0)")
 
 
 def max_abs(a, b) -> float:
@@ -561,49 +643,59 @@ def check_dd_newton(sol, loads, dev, picks: int = 16) -> None:
         raise AssertionError(f"{what}: strains outside what the tolerance bounds")
 
 
-def picard_fma(n1: int, iters: int) -> int:
-    """FP32 FMAs of ``iters`` Picard steps for one rod: G (4 columns) plus
-    the 12-FMA A(K/2) action per point."""
-    return iters * (4 * n1 * n1 + 12 * n1)
-
-
-def bound(f32_fma: float, f64_fma: float, nbytes: float) -> tuple:
-    """(least ms on the card, what bounds it): operations at the published
-    peaks (an FMA is 2 FLOP) against bytes at the HBM rate."""
-    t_ops = 2 * f32_fma / F32_PEAK + 2 * f64_fma / F64_PEAK
+def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
+    """Least ms on the card and what bounds it: operations at the published
+    peaks (an FMA is 2 FLOP) against bytes at the HBM rate.  ``mat_fma`` are
+    the f32 matrix products' FMAs (G or Dn against a panel), ``f32_fma`` the
+    other f32 ones: ``bound_ms`` takes both at the FP32 peak, ``bound_tc_ms``
+    the matrix products as 3xTF32 on the tensor cores."""
     t_mem = nbytes / HBM_RATE
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+    t_f64 = 2 * f64_fma / F64_PEAK
+    t_ops = 2 * (mat_fma + f32_fma) / F32_PEAK + t_f64
+    t_tc = 2 * mat_fma / TF32X3_PEAK + 2 * f32_fma / F32_PEAK + t_f64
+    return dict(bound_ms=max(t_ops, t_mem) * 1e3,
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                bound_tc_ms=max(t_tc, t_mem) * 1e3)
+
+
+def picard_fma(n1: int, iters: int) -> tuple:
+    """(matrix, other) FP32 FMAs of ``iters`` Picard steps for one rod: G
+    (4 columns), and the 12-FMA A(K/2) action per point."""
+    return iters * 4 * n1 * n1, iters * 12 * n1
 
 
 def k1_bound(b, n1, na, ne, iters):
-    return bound(b * (na * ne * n1 + picard_fma(n1, iters) + 3 * n1 * n1), 0,
+    mat, other = picard_fma(n1, iters)
+    return bound(b * (mat + 3 * n1 * n1), b * (na * ne * n1 + other), 0,
                  4 * b * (na * ne + 7 * n1))
 
 
 def k2_bound(b, n1, nq, ne, iters):
-    return bound(b * (3 * ne * n1 + 4 * n1 * n1 + picard_fma(n1, iters)), 0,
-                 4 * b * (nq + 8 * n1))
+    mat, other = picard_fma(n1, iters)
+    return bound(b * (mat + 4 * n1 * n1), b * (3 * ne * n1 + other), 0, 4 * b * (nq + 8 * n1))
 
 
 def k3_bound(b, n1, na, ne, iters, corr_iters):
-    f32 = b * (picard_fma(n1, iters) + picard_fma(n1, corr_iters) + 4 * n1 * n1)
+    mat, other = picard_fma(n1, iters + corr_iters)
     f64 = b * (na * ne * n1 + 4 * n1 * n1 + 12 * n1 + 3 * n1 * n1)
-    return bound(f32, f64, 4 * b * (2 * na * ne + 14 * n1))
+    return bound(b * (mat + 4 * n1 * n1), b * other, f64, 4 * b * (2 * na * ne + 14 * n1))
 
 
 def k4_bound(b, n1, na, ne, iters):
     """K1's work plus the boundary outer products gvec ⊗ q0 and gvec ⊗ r0,
     and 7 more floats in per rod."""
-    return bound(b * (na * ne * n1 + picard_fma(n1, iters) + 3 * n1 * n1 + 7 * n1), 0,
+    mat, other = picard_fma(n1, iters)
+    return bound(b * (mat + 3 * n1 * n1), b * (na * ne * n1 + other + 7 * n1), 0,
                  4 * b * (na * ne + 7 + 7 * n1))
 
 
 def k5_bound(b, n1, na, ne, iters, corr_iters):
     """K3's work plus the outer products gvec32 ⊗ q0_hi (FP32), dn_in ⊗ q0
     and gvec64 ⊗ r0 (FP64), and the boundary pairs (14 floats) in per rod."""
-    f32 = b * (picard_fma(n1, iters) + picard_fma(n1, corr_iters) + 4 * n1 * n1 + 4 * n1)
+    mat, other = picard_fma(n1, iters + corr_iters)
     f64 = b * (na * ne * n1 + 4 * n1 * n1 + 12 * n1 + 3 * n1 * n1 + 7 * n1)
-    return bound(f32, f64, 4 * b * (2 * na * ne + 14 + 14 * n1))
+    return bound(b * (mat + 4 * n1 * n1), b * (other + 4 * n1), f64,
+                 4 * b * (2 * na * ne + 14 + 14 * n1))
 
 
 def collocation_system(cfg: rod.RodConfig, qes: torch.Tensor, rhs: torch.Tensor):
@@ -612,6 +704,12 @@ def collocation_system(cfg: rod.RodConfig, qes: torch.Tensor, rhs: torch.Tensor)
     k = rod.curvature_at_points(cfg, qes)[..., :3]          # f32, as the kernel's
     a = coll.collocation_matrix(cfg.grid(qes.device), 0.5 * lie.quat_skew(k))
     return a, coll.to_component_major(rhs).unsqueeze(-1)
+
+
+def print_bounds(what: str, ms: float, b: dict) -> None:
+    print(f"  {what}: bound {b['bound_ms']:.4f} ms ({b['bound_by']}), kernel at "
+          f"{b['bound_ms'] / ms:.1%} of it; tensor-core bound {b['bound_tc_ms']:.4f} ms, "
+          f"kernel at {b['bound_tc_ms'] / ms:.1%} of it")
 
 
 def timed(card: str, what: str, kernel, plain, batch: int, warmup: int = 3,
@@ -680,7 +778,7 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
                                                        cfg=CFG64, iters=22, corr_iters=22),
                 32768, "n=64 iters 22/22", k5_bound(32768, 63, 3, 3, 22, 22), None),
     }
-    for key, (kernel, plain, batch, shape, (bound_ms, bound_by), library) in runs.items():
+    for key, (kernel, plain, batch, shape, bounds, library) in runs.items():
         out, ref = kernel(), plain()
         if key.startswith(("K3", "K5")):
             compare_k3(errors, key, out, ref, f"{key} {shape} B={batch}")
@@ -698,10 +796,9 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
             print(f"  {key}: batched torch.linalg.solve of the assembled "
                   f"{tuple(a.shape)} f32 systems {lib_ms:.4f} ms [{card}]")
             del a, b
-        print(f"  {key}: bound {bound_ms:.4f} ms ({bound_by}), kernel at "
-              f"{bound_ms / k:.1%} of it")
-        times[key] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms)
+        print_bounds(key, k, bounds)
+        times[key] = dict(ms=k, plain_ms=p, bound_ms=bounds["bound_ms"],
+                          bound_by=bounds["bound_by"], library_ms=lib_ms)
         torch.cuda.empty_cache()
 
     # the wide kernels' other width: n-1 = 63 is the TPU's paired range,
@@ -723,10 +820,9 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
             lambda: rk.picard_correction_plain(h256, rhs256, CFG256), 8192,
             k2_bound(8192, 255, 9, 3, 20)),
     }
-    for what, (kernel, plain, batch, (bound_ms, bound_by)) in others.items():
+    for what, (kernel, plain, batch, bounds) in others.items():
         k, _ = timed(card, what, kernel, plain, batch)
-        print(f"  {what}: bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / k:.1%} "
-              "of it")
+        print_bounds(what, k, bounds)
     # K2 wide at n=256 beside its library call: the full (8192, 1020, 1020)
     # f32 systems take 34 GB, so both run at B=1024.
     h1k, rhs1k = h256[:1024].contiguous(), rhs256[:1024].contiguous()
@@ -801,6 +897,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     print("== 2. build")
     phase_build()
+    phase_accumulation_probe(dev)
     print("== 3. kernels vs plain versions on the card")
     errors = {}
     phase_kernels_vs_plain(dev, errors)

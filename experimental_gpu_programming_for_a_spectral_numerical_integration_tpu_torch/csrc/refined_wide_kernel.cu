@@ -26,20 +26,30 @@
 // full G is used, and steps 3 and 5 are native FP64 (no planes, no window
 // tests; the rho sentinel stays).
 //
-// Bound on an H100: the two f32 Picard loops are K1's FP32-FMA work,
-// 4 (n-1)^2 (iters + corr_iters + 2) FMAs per rod (n=256 with 28 + 28 steps:
-// ~15M per rod, B=8192 >= 3.6 ms at 67 TFLOP/s); the FP64 residual and
-// position add 7 (n-1)^2 FMAs per rod at half the FP32 rate; the traffic is
-// ~72 bytes in and 56 (n-1) bytes out per rod.  FMA bound.  Design: K1 wide's
-// (wide_common.cuh) for the f32 loops; the FP64 products read Dn_NN^T and
-// G^T in FP64 from device memory (through L1/L2) against the same panel,
-// which is reused as an FP64 panel for the position.  A rod spans several
-// warps, so the rho sentinel's max is a shared-memory atomicMax.
+// Bound on an H100: the two f32 Picard loops and G res are 4 (n-1)^2
+// (iters + corr_iters + 1) multiply-adds per rod (n=256, 16 + 16 steps:
+// ~8.6M per rod); in FP32 FMAs that is >= 2.1 ms at B=8192 (67 TFLOP/s), as
+// 3xTF32 tensor-core products three times the work at 495 TFLOP/s, >= 0.85
+// ms.  The FP64 residual and position add 7 (n-1)^2 FMAs per rod; the
+// traffic is ~72 bytes in and 56 (n-1) bytes out per rod.  Operations bound.
+// Design (tc_picard.cuh): R rods per block, the f32 products as 3xTF32
+// mma.sync tiles with the points as M and the rods' four components as N, G^T
+// and the panel T = A(K/2) s in shared memory (G^T resident at P <= 128,
+// streamed in double-buffered cp.async slabs above), the state in the MMA
+// accumulators with A(K/2) applied in registers, g_rhs in per-thread
+// shared-memory slots.  The base solve s is kept in q_hi (this thread's own
+// points) between steps 3 and 5, and K/2 is recomputed after the residual,
+// to keep both out of the registers of the FP64 phase.  The FP64 products
+// read Dn_NN^T and G^T in FP64 from device memory (through L1/L2) against
+// FP64 panels of s and of the tangent b laid over G^T and T (converted once,
+// not at every product term).  A rod spans several warps, so the rho
+// sentinel's max is a shared-memory atomicMax.
 //
 // C interface as rod_wide_kernel.cu; qes_lo, q0_lo and r0_lo may be NULL (zero
 // low words) and rho2_limit < 0 disables the sentinel.  g32t, dn64t and g64t are the
 // transposed operators, zero-padded to P x P.
 #include "refined_bc.cuh"
+#include "tc_picard.cuh"
 #include "wide_common.cuh"
 
 namespace {
@@ -66,24 +76,137 @@ __device__ __forceinline__ double strain64(const float* __restrict__ hi,
     return k;
 }
 
-// TM consecutive doubles of a 16-byte aligned row.
-template <int TM>
-__device__ __forceinline__ void load_row64(const double* __restrict__ src, double (&d)[TM]) {
-#pragma unroll
-    for (int m = 0; m < TM; m += 2) {
-        const double2 v = __ldg(reinterpret_cast<const double2*>(src + m));
-        d[m] = v.x;
-        d[m + 1] = v.y;
-    }
+// Dynamic shared memory: G^T and T, or over both the FP64 panel of s (the
+// residual) or of the tangent b (the position); then each thread's private
+// slots for g_rhs.
+template <int P>
+__host__ __device__ constexpr size_t region_bytes() {
+    using C = tc::Cfg<P>;
+    const size_t ops = (size_t)(C::kGFloats + C::kTFloats) * sizeof(float);
+    const size_t s64 = (size_t)P * 4 * C::R * sizeof(double);
+    return ops > s64 ? ops : s64;
 }
 
 template <int P>
-constexpr size_t panel_bytes() {
-    return (size_t)P * Layout<P>::R * 2 * sizeof(double2);   // 4 doubles per point and rod
+__host__ __device__ constexpr size_t smem_bytes() {
+    using C = tc::Cfg<P>;
+    return region_bytes<P>() + (size_t)C::kAcc * C::kThreads * sizeof(float);
+}
+
+// The thread's accumulator entries of pair (mt, jr, h, e), component c.
+#define ACC(mt, jr, h, e, c) acc[mt][(c) * C::JR + (jr)][2 * (h) + (e)]
+
+// K/2 at the thread's pairs, f32-rounded from FP64 (zero for a rod past the
+// batch), and each rod's max |K/2|^2 over the thread's points.
+template <int P>
+__device__ __forceinline__ void half_strain(const float* __restrict__ qes_hi,
+                                            const float* __restrict__ qes_lo,
+                                            const double* __restrict__ ptab64, int batch,
+                                            int nq, int ne, long long rod_base,
+                                            const tc::Lane& l,
+                                            float (&kh)[tc::Cfg<P>::MT][tc::Cfg<P>::JR][2][2][3],
+                                            float (&rho2)[tc::Cfg<P>::JR][2]) {
+    using C = tc::Cfg<P>;
+#pragma unroll
+    for (int jr = 0; jr < C::JR; ++jr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const long long gid = rod_base + tc::pair_rod(l, jr, e);
+            const bool live = gid < batch;
+            const float* hi = qes_hi + gid * nq;
+            const float* lo = qes_lo == nullptr ? nullptr : qes_lo + gid * nq;
+            rho2[jr][e] = 0.f;
+#pragma unroll
+            for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    float* k = kh[mt][jr][h][e];
+                    const int i = tc::pair_row(l, mt, h);
+#pragma unroll
+                    for (int a = 0; a < 3; ++a)
+                        k[a] = live ? (float)(0.5 * strain64(hi, lo, ptab64, ne, i, a)) : 0.f;
+                    rho2[jr][e] = fmaxf(rho2[jr][e], k[0] * k[0] + k[1] * k[1] + k[2] * k[2]);
+                }
+        }
+}
+
+// Each pair's 4-vector v(mt, jr, h, e) into T.
+template <int P, class V>
+__device__ __forceinline__ void write_panel(float* ts, const tc::Lane& l, V v) {
+    using C = tc::Cfg<P>;
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int jr = 0; jr < C::JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const float4 t0 = v(mt, jr, h, 0), t1 = v(mt, jr, h, 1);
+                float* row = ts + tc::pair_row(l, mt, h) * C::TS + tc::pair_rod(l, jr, 0);
+                *reinterpret_cast<float2*>(row) = make_float2(t0.x, t1.x);
+                *reinterpret_cast<float2*>(row + C::R) = make_float2(t0.y, t1.y);
+                *reinterpret_cast<float2*>(row + 2 * C::R) = make_float2(t0.z, t1.z);
+                *reinterpret_cast<float2*>(row + 3 * C::R) = make_float2(t0.w, t1.w);
+            }
+}
+
+
+// The thread's pairs in a loop nest: f(mt, jr, h, e, point, block-local rod).
+template <int P, class F>
+__device__ __forceinline__ void for_pairs(const tc::Lane& l, F f) {
+    using C = tc::Cfg<P>;
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int jr = 0; jr < C::JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    f(mt, jr, h, e, tc::pair_row(l, mt, h), tc::pair_rod(l, jr, e));
+}
+
+// The thread's accumulator tile <-> its private slots (layout [j][thread]:
+// conflict-free, not shared with other threads).
+template <int P>
+__device__ __forceinline__ void store_acc(float* slots, int tid,
+                                          const float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
+    using C = tc::Cfg<P>;
+#pragma unroll
+    for (int j = 0; j < C::kAcc; ++j) slots[j * C::kThreads + tid] = (&acc[0][0][0])[j];
+}
+
+template <int P>
+__device__ __forceinline__ void load_acc(const float* slots, int tid,
+                                         float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
+    using C = tc::Cfg<P>;
+#pragma unroll
+    for (int j = 0; j < C::kAcc; ++j) (&acc[0][0][0])[j] = slots[j * C::kThreads + tid];
+}
+
+// Picard fixed point s = g_rhs + G (A(K/2) s), `iters` steps from s = g_rhs,
+// into acc; g_rhs is in the thread's slots.  Every thread of the block must
+// call it with the same `iters`.
+template <int P>
+__device__ __forceinline__ void picard_tc(float* gs, const float* __restrict__ gt, float* ts,
+                                          const float* g_rhs, int npts, int tid,
+                                          const tc::Lane& l,
+                                          const float (&kh)[tc::Cfg<P>::MT][tc::Cfg<P>::JR][2][2][3],
+                                          int iters,
+                                          float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
+    using C = tc::Cfg<P>;
+    load_acc<P>(g_rhs, tid, acc);
+    for (int it = 0; it < iters; ++it) {
+        write_panel<P>(ts, l, [&](int mt, int jr, int h, int e) {
+            return a_apply(kh[mt][jr][h][e], make_float4(ACC(mt, jr, h, e, 0), ACC(mt, jr, h, e, 1),
+                                                         ACC(mt, jr, h, e, 2), ACC(mt, jr, h, e, 3)));
+        });
+        load_acc<P>(g_rhs, tid, acc);
+        tc::gemm<P>(gs, gt, ts, npts, tid, l, acc);
+    }
 }
 
 template <int P, int NA, bool BC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(tc::Cfg<P>::kThreads, tc::Cfg<P>::kMinBlocks)
 rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               const float* __restrict__ qes_lo, int batch, int npts, int ne,
                               const float* __restrict__ g32t, const float* __restrict__ gvec32,
@@ -95,206 +218,278 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               float rho2_limit, float* __restrict__ q_hi,
                               float* __restrict__ q_lo, float* __restrict__ r_hi,
                               float* __restrict__ r_lo) {
-    using L = Layout<P>;
-    constexpr int TM = L::TM, R = L::R;
+    using C = tc::Cfg<P>;
+    constexpr int MT = C::MT, JR = C::JR, NT = C::NT, R = C::R;
     extern __shared__ double2 smem[];
-    float4* panel = reinterpret_cast<float4*>(smem);   // f32 phases
-    double2* panel64 = smem;                            // position phase
+    float* gs = reinterpret_cast<float*>(smem);          // G^T (resident or slabs)
+    float* ts = gs + C::kGFloats;                        // the panel T
+    double* panel64 = reinterpret_cast<double*>(smem);   // FP64 panels, over gs and ts
+    float* slots = reinterpret_cast<float*>(smem) + region_bytes<P>() / sizeof(float);
     __shared__ int rho_bits[R];
 
-    const int rod = threadIdx.x % R;
-    const int i0 = (threadIdx.x / R) * TM;
-    const long long gid = (long long)blockIdx.x * R + rod;
-    const bool live = gid < batch;
+    const int tid = threadIdx.x;
+    const tc::Lane l = tc::lane_of<P>(tid);
+    const long long rod_base = (long long)blockIdx.x * R;
     const int nq = NA * ne;
-    const float* hi_rod = qes_hi + gid * nq;
-    const float* lo_rod = qes_lo == nullptr ? nullptr : qes_lo + gid * nq;
-    if (threadIdx.x < R) rho_bits[threadIdx.x] = 0;
+    if (tid < R) rho_bits[tid] = 0;
     __syncthreads();
+    tc::request_g<P>(gs, g32t, tid);
 
-    // K5's boundary values are read where they are used, to keep them out of
-    // the register peak of the Picard loops: q0_hi here (the f32 base solve
-    // starts from gvec32 ⊗ q0_hi), q0 for the residual, r0 for the position.
-    float4 q0h = make_float4(1.f, 0.f, 0.f, 0.f);
-    if constexpr (BC) {
-        if (live) q0h = reinterpret_cast<const float4*>(bc.q0_hi)[gid];
-    }
+    // 1. K/2 in FP64, rounded to f32, and the rho sentinel: max over the
+    // rod's points of |K/2|^2 (non-negative floats order as their bits).
+    float kh[MT][JR][2][2][3];
+    float rho2[JR][2];
+    half_strain<P>(qes_hi, qes_lo, ptab64, batch, nq, ne, rod_base, l, kh, rho2);
+#pragma unroll
+    for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+            atomicMax(&rho_bits[tc::pair_rod(l, jr, e)], __float_as_int(rho2[jr][e]));
 
-    // 1. K/2 in FP64, rounded to f32 for the Picard loops.
-    float kh[TM][3];
-    float4 g_rhs[TM];
-    float rho2 = 0.f;
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-            kh[m][a] = live ? (float)(0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i0 + m, a))
-                            : 0.f;
-        }
-        rho2 = fmaxf(rho2, kh[m][0] * kh[m][0] + kh[m][1] * kh[m][1] + kh[m][2] * kh[m][2]);
-        const float gv = gvec32[i0 + m];
+    // 2. f32 base solve s (in acc) from g_rhs = gvec32 ⊗ q0_hi (K5) or
+    // gvec32 ⊗ (1,0,0,0) (K3) in the slots.
+    float acc[MT][NT][4];
+    for_pairs<P>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
+        const float gv = gvec32[i];
         if constexpr (BC) {
-            g_rhs[m] = make_float4(gv * q0h.x, gv * q0h.y, gv * q0h.z, gv * q0h.w);
+            float4 q0h = make_float4(1.f, 0.f, 0.f, 0.f);
+            if (rod_base + rl < batch) q0h = reinterpret_cast<const float4*>(bc.q0_hi)[rod_base + rl];
+            ACC(mt, jr, h, e, 0) = gv * q0h.x;
+            ACC(mt, jr, h, e, 1) = gv * q0h.y;
+            ACC(mt, jr, h, e, 2) = gv * q0h.z;
+            ACC(mt, jr, h, e, 3) = gv * q0h.w;
         } else {
-            g_rhs[m] = make_float4(gv, 0.f, 0.f, 0.f);
+            ACC(mt, jr, h, e, 0) = gv;
+            ACC(mt, jr, h, e, 1) = ACC(mt, jr, h, e, 2) = ACC(mt, jr, h, e, 3) = 0.f;
         }
-    }
+    });
+    store_acc<P>(slots, tid, acc);
+    picard_tc<P>(gs, g32t, ts, slots, npts, tid, l, kh, iters, acc);
 
-    // 2. f32 base solve.
-    float4 s[TM];
-    picard<P>(g32t, panel, npts, i0, rod, kh, g_rhs, iters, s);
-
-    // rho sentinel: max over the rod's points of |K/2|^2 (non-negative
-    // floats order as their bit patterns).
-    atomicMax(&rho_bits[rod], __float_as_int(rho2));
-
-    // 3. FP64 residual rhs - Dn_NN s + A(K/2) s.
-#pragma unroll
-    for (int m = 0; m < TM; ++m) panel[(i0 + m) * R + rod] = s[m];
+    // 3. s into the FP64 panel s64[k][c R + rod] over gs and ts (and into
+    // q_hi, this thread's own points, until step 5), then the FP64 residual
+    // rhs - Dn_NN s + A(K/2) s into acc.
+    double* s64 = panel64;
+    tc::cp_async_wait<0>();
     __syncthreads();
-    const bool bad = rho2_limit >= 0.f && __int_as_float(rho_bits[rod]) > rho2_limit;
-    double d[TM][4];
+    for_pairs<P>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
+        double* at = s64 + (size_t)i * 4 * R + rl;
 #pragma unroll
-    for (int m = 0; m < TM; ++m) d[m][0] = d[m][1] = d[m][2] = d[m][3] = 0.0;
-    for (int k = 0; k < npts; ++k) {
-        const float4 t = panel[k * R + rod];
-        double dk[TM];
-        load_row64<TM>(dn64t + (size_t)k * P + i0, dk);
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-            d[m][0] = fma(dk[m], (double)t.x, d[m][0]);
-            d[m][1] = fma(dk[m], (double)t.y, d[m][1]);
-            d[m][2] = fma(dk[m], (double)t.z, d[m][2]);
-            d[m][3] = fma(dk[m], (double)t.w, d[m][3]);
-        }
-    }
+        for (int c = 0; c < 4; ++c) at[c * R] = ACC(mt, jr, h, e, c);
+        if (rod_base + rl < batch && i < npts)
+            reinterpret_cast<float4*>(q_hi)[(rod_base + rl) * npts + i] = make_float4(
+                    ACC(mt, jr, h, e, 0), ACC(mt, jr, h, e, 1), ACC(mt, jr, h, e, 2),
+                    ACC(mt, jr, h, e, 3));
+    });
     __syncthreads();
-    float4 res[TM];
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-        const int i = i0 + m;
-        double kh0 = 0.0, kh1 = 0.0, kh2 = 0.0;
-        if (live) {
-            kh0 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 0);
-            kh1 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 1);
-            kh2 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 2);
-        }
-        const double sw = s[m].x, sx = s[m].y, sy = s[m].z, sz = s[m].w;
-        double e0, e1, e2, e3;
-        if constexpr (BC) {   // rhs = -dn_in ⊗ q0, every component
-            double q0[4] = {1.0, 0.0, 0.0, 0.0};
-            if (live) {
+    for (int mt = 0; mt < MT; ++mt) {
+        double d[JR][2][2][4];
 #pragma unroll
-                for (int c = 0; c < 4; ++c) q0[c] = pair_at(bc.q0_hi, bc.q0_lo, gid * 4 + c);
-            }
-            const double din = din64[i];
-            e0 = -din * q0[0] - d[m][0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
-            e1 = -din * q0[1] - d[m][1] + (kh0 * sw + kh2 * sy - kh1 * sz);
-            e2 = -din * q0[2] - d[m][2] + (kh1 * sw - kh2 * sx + kh0 * sz);
-            e3 = -din * q0[3] - d[m][3] + (kh2 * sw + kh1 * sx - kh0 * sy);
-        } else {
-            e0 = -din64[i] - d[m][0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
-            e1 = -d[m][1] + (kh0 * sw + kh2 * sy - kh1 * sz);
-            e2 = -d[m][2] + (kh1 * sw - kh2 * sx + kh0 * sz);
-            e3 = -d[m][3] + (kh2 * sw + kh1 * sx - kh0 * sy);
+        for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) d[jr][h][e][c] = 0.0;
+        const int i0 = tc::pair_row(l, mt, 0), i1 = tc::pair_row(l, mt, 1);
+        for (int k = 0; k < npts; ++k) {
+            const double dk0 = dn64t[(size_t)k * P + i0], dk1 = dn64t[(size_t)k * P + i1];
+            const double* sk = s64 + (size_t)k * 4 * R + tc::pair_rod(l, 0, 0);
+#pragma unroll
+            for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        const double sv = sk[c * R + jr * 8 + e];
+                        d[jr][0][e][c] = fma(dk0, sv, d[jr][0][e][c]);
+                        d[jr][1][e][c] = fma(dk1, sv, d[jr][1][e][c]);
+                    }
         }
-        res[m] = make_float4((float)e0, (float)e1, (float)e2, (float)e3);
+#pragma unroll
+        for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int i = tc::pair_row(l, mt, h), rl = tc::pair_rod(l, jr, e);
+                    const long long gid = rod_base + rl;
+                    const bool live = gid < batch;
+                    const float* hi_rod = qes_hi + gid * nq;
+                    const float* lo_rod = qes_lo == nullptr ? nullptr : qes_lo + gid * nq;
+                    double kh0 = 0.0, kh1 = 0.0, kh2 = 0.0;
+                    if (live) {
+                        kh0 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 0);
+                        kh1 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 1);
+                        kh2 = 0.5 * strain64(hi_rod, lo_rod, ptab64, ne, i, 2);
+                    }
+                    const double* s = s64 + (size_t)i * 4 * R + rl;
+                    const double sw = s[0], sx = s[R], sy = s[2 * R], sz = s[3 * R];
+                    const double* dm = d[jr][h][e];
+                    double e0, e1, e2, e3;
+                    if constexpr (BC) {   // rhs = -dn_in ⊗ q0, every component
+                        double q0[4] = {1.0, 0.0, 0.0, 0.0};
+                        if (live) {
+#pragma unroll
+                            for (int c = 0; c < 4; ++c)
+                                q0[c] = pair_at(bc.q0_hi, bc.q0_lo, gid * 4 + c);
+                        }
+                        const double din = din64[i];
+                        e0 = -din * q0[0] - dm[0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
+                        e1 = -din * q0[1] - dm[1] + (kh0 * sw + kh2 * sy - kh1 * sz);
+                        e2 = -din * q0[2] - dm[2] + (kh1 * sw - kh2 * sx + kh0 * sz);
+                        e3 = -din * q0[3] - dm[3] + (kh2 * sw + kh1 * sx - kh0 * sy);
+                    } else {
+                        e0 = -din64[i] - dm[0] + (-kh0 * sx - kh1 * sy - kh2 * sz);
+                        e1 = -dm[1] + (kh0 * sw + kh2 * sy - kh1 * sz);
+                        e2 = -dm[2] + (kh1 * sw - kh2 * sx + kh0 * sz);
+                        e3 = -dm[3] + (kh2 * sw + kh1 * sx - kh0 * sy);
+                    }
+                    ACC(mt, jr, h, e, 0) = (float)e0;
+                    ACC(mt, jr, h, e, 1) = (float)e1;
+                    ACC(mt, jr, h, e, 2) = (float)e2;
+                    ACC(mt, jr, h, e, 3) = (float)e3;
+                }
     }
 
-    // 4. f32 correction.
-    float4 zero[TM], g_res[TM], delta[TM];
+    // 4. f32 correction: g_res = G res, then Picard from g_res.
+    __syncthreads();   // every thread is done with s64: G^T and T take it back
+    tc::request_g<P>(gs, g32t, tid);
+    write_panel<P>(ts, l, [&](int mt, int jr, int h, int e) {
+        return make_float4(ACC(mt, jr, h, e, 0), ACC(mt, jr, h, e, 1), ACC(mt, jr, h, e, 2),
+                           ACC(mt, jr, h, e, 3));
+    });
 #pragma unroll
-    for (int m = 0; m < TM; ++m) zero[m] = make_float4(0.f, 0.f, 0.f, 0.f);
-    g_times<P>(g32t, panel, npts, i0, rod, res, zero, g_res);
-    picard<P>(g32t, panel, npts, i0, rod, kh, g_res, corr_iters, delta);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    tc::gemm<P>(gs, g32t, ts, npts, tid, l, acc);
+    store_acc<P>(slots, tid, acc);
+    half_strain<P>(qes_hi, qes_lo, ptab64, batch, nq, ne, rod_base, l, kh, rho2);
+    picard_tc<P>(gs, g32t, ts, slots, npts, tid, l, kh, corr_iters, acc);
 
-    // 5. FP64 combine (written out at once, split or poisoned) and tangent
-    // into the FP64 panel (the f32 panel is free: the correction's last
-    // product ended with a barrier), then the position.
+    // 5. FP64 combine x = s + delta (written out at once, split or poisoned)
+    // and tangent into the FP64 panel, then the position.  The panel lies
+    // over G^T and T: the last slab request must land first.
+    tc::cp_async_wait<0>();
+    __syncthreads();
     const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-        const int i = i0 + m;
-        const double w = (double)s[m].x + (double)delta[m].x;
-        const double xx = (double)s[m].y + (double)delta[m].y;
-        const double y = (double)s[m].z + (double)delta[m].z;
-        const double z = (double)s[m].w + (double)delta[m].w;
-        if (live && i < npts) {
-            float4 qh, ql;
-            split(w, qh.x, ql.x);
-            split(xx, qh.y, ql.y);
-            split(y, qh.z, ql.z);
-            split(z, qh.w, ql.w);
-            if (bad) qh = ql = make_float4(nan, nan, nan, nan);
-            reinterpret_cast<float4*>(q_hi)[gid * npts + i] = qh;
-            reinterpret_cast<float4*>(q_lo)[gid * npts + i] = ql;
-        }
-        const double r00 = 1.0 - 2.0 * (y * y + z * z);
-        const double r10 = 2.0 * (xx * y + w * z);
-        const double r20 = 2.0 * (xx * z - w * y);
-        double b0 = r00, b1 = r10, b2 = r20;
-        if constexpr (NA == 6) {
-            double e0 = 1.0, g1 = 0.0, g2 = 0.0;
-            if (live) {
-                e0 += strain64(hi_rod, lo_rod, ptab64, ne, i, 3);
-                g1 = strain64(hi_rod, lo_rod, ptab64, ne, i, 4);
-                g2 = strain64(hi_rod, lo_rod, ptab64, ne, i, 5);
-            }
-            const double r01 = 2.0 * (xx * y - w * z), r02 = 2.0 * (xx * z + w * y);
-            const double r11 = 1.0 - 2.0 * (xx * xx + z * z), r12 = 2.0 * (y * z - w * xx);
-            const double r21 = 2.0 * (y * z + w * xx), r22 = 1.0 - 2.0 * (xx * xx + y * y);
-            b0 = r00 * e0 + r01 * g1 + r02 * g2;
-            b1 = r10 * e0 + r11 * g1 + r12 * g2;
-            b2 = r20 * e0 + r21 * g1 + r22 * g2;
-        }
-        panel64[((i0 + m) * R + rod) * 2 + 0] = make_double2(b0, b1);
-        panel64[((i0 + m) * R + rod) * 2 + 1] = make_double2(b2, 0.0);
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int i = tc::pair_row(l, mt, h), rl = tc::pair_rod(l, jr, e);
+                    const long long gid = rod_base + rl;
+                    const bool live = gid < batch;
+                    const bool out = live && i < npts;
+                    const int q = 2 * h + e;
+                    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (out) s = reinterpret_cast<const float4*>(q_hi)[gid * npts + i];
+                    const double w = (double)s.x + (double)acc[mt][jr][q];
+                    const double xx = (double)s.y + (double)acc[mt][JR + jr][q];
+                    const double y = (double)s.z + (double)acc[mt][2 * JR + jr][q];
+                    const double z = (double)s.w + (double)acc[mt][3 * JR + jr][q];
+                    if (out) {
+                        float4 qh, ql;
+                        split(w, qh.x, ql.x);
+                        split(xx, qh.y, ql.y);
+                        split(y, qh.z, ql.z);
+                        split(z, qh.w, ql.w);
+                        if (rho2_limit >= 0.f && __int_as_float(rho_bits[rl]) > rho2_limit)
+                            qh = ql = make_float4(nan, nan, nan, nan);
+                        reinterpret_cast<float4*>(q_hi)[gid * npts + i] = qh;
+                        reinterpret_cast<float4*>(q_lo)[gid * npts + i] = ql;
+                    }
+                    const double r00 = 1.0 - 2.0 * (y * y + z * z);
+                    const double r10 = 2.0 * (xx * y + w * z);
+                    const double r20 = 2.0 * (xx * z - w * y);
+                    double b0 = r00, b1 = r10, b2 = r20;
+                    if constexpr (NA == 6) {
+                        const float* hi_rod = qes_hi + gid * nq;
+                        const float* lo_rod = qes_lo == nullptr ? nullptr : qes_lo + gid * nq;
+                        double e0 = 1.0, g1 = 0.0, g2 = 0.0;
+                        if (live) {
+                            e0 += strain64(hi_rod, lo_rod, ptab64, ne, i, 3);
+                            g1 = strain64(hi_rod, lo_rod, ptab64, ne, i, 4);
+                            g2 = strain64(hi_rod, lo_rod, ptab64, ne, i, 5);
+                        }
+                        const double r01 = 2.0 * (xx * y - w * z), r02 = 2.0 * (xx * z + w * y);
+                        const double r11 = 1.0 - 2.0 * (xx * xx + z * z);
+                        const double r12 = 2.0 * (y * z - w * xx);
+                        const double r21 = 2.0 * (y * z + w * xx);
+                        const double r22 = 1.0 - 2.0 * (xx * xx + y * y);
+                        b0 = r00 * e0 + r01 * g1 + r02 * g2;
+                        b1 = r10 * e0 + r11 * g1 + r12 * g2;
+                        b2 = r20 * e0 + r21 * g1 + r22 * g2;
+                    }
+                    double* b = panel64 + ((size_t)i * R + rl) * 3;
+                    b[0] = b0;
+                    b[1] = b1;
+                    b[2] = b2;
+                }
     __syncthreads();
-    double p[TM][3];
 #pragma unroll
-    for (int m = 0; m < TM; ++m) p[m][0] = p[m][1] = p[m][2] = 0.0;
-    for (int k = 0; k < npts; ++k) {
-        const double2 b01 = panel64[(k * R + rod) * 2 + 0];
-        const double2 b2 = panel64[(k * R + rod) * 2 + 1];
-        double gk[TM];
-        load_row64<TM>(g64t + (size_t)k * P + i0, gk);
+    for (int mt = 0; mt < MT; ++mt) {
+        double p[JR][2][2][3];
 #pragma unroll
-        for (int m = 0; m < TM; ++m) {
-            p[m][0] = fma(gk[m], b01.x, p[m][0]);
-            p[m][1] = fma(gk[m], b01.y, p[m][1]);
-            p[m][2] = fma(gk[m], b2.x, p[m][2]);
+        for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) p[jr][h][e][0] = p[jr][h][e][1] = p[jr][h][e][2] = 0.0;
+        const int i0 = tc::pair_row(l, mt, 0), i1 = tc::pair_row(l, mt, 1);
+        for (int k = 0; k < npts; ++k) {
+            const double gk[2] = {g64t[(size_t)k * P + i0], g64t[(size_t)k * P + i1]};
+            const double* bk = panel64 + ((size_t)k * R + tc::pair_rod(l, 0, 0)) * 3;
+#pragma unroll
+            for (int jr = 0; jr < JR; ++jr)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const double bv = bk[(jr * 8 + e) * 3 + c];
+                        p[jr][0][e][c] = fma(gk[0], bv, p[jr][0][e][c]);
+                        p[jr][1][e][c] = fma(gk[1], bv, p[jr][1][e][c]);
+                    }
         }
-    }
-    if constexpr (BC) {   // + gvec64 ⊗ r0, in FP64
-        double r0[3] = {0.0, 0.0, 0.0};
-        if (live) {
+        // 6. + gvec64 ⊗ r0 (K5, FP64), then split the position or poison the rod.
 #pragma unroll
-            for (int c = 0; c < 3; ++c) r0[c] = pair_at(bc.r0_hi, bc.r0_lo, gid * 3 + c);
-        }
+        for (int jr = 0; jr < JR; ++jr)
 #pragma unroll
-        for (int m = 0; m < TM; ++m) {
-            const double gv = bc.gvec64[i0 + m];
+            for (int e = 0; e < 2; ++e) {
+                const int rl = tc::pair_rod(l, jr, e);
+                const long long gid = rod_base + rl;
+                if (gid >= batch) continue;
+                const bool bad = rho2_limit >= 0.f && __int_as_float(rho_bits[rl]) > rho2_limit;
+                double r0[3] = {0.0, 0.0, 0.0};
+                if constexpr (BC) {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) p[m][c] = fma(gv, r0[c], p[m][c]);
-        }
-    }
-
-    // 6. split the position, or poison the rod.
-    if (live) {
+                    for (int c = 0; c < 3; ++c) r0[c] = pair_at(bc.r0_hi, bc.r0_lo, gid * 3 + c);
+                }
 #pragma unroll
-        for (int m = 0; m < TM; ++m) {
-            const int i = i0 + m;
-            if (i >= npts) continue;
-            const long long at = gid * npts + i;
+                for (int h = 0; h < 2; ++h) {
+                    const int i = tc::pair_row(l, mt, h);
+                    if (i >= npts) continue;
+                    const long long at = gid * npts + i;
 #pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                float rh, rl;
-                split(p[m][c], rh, rl);
-                r_hi[at * 3 + c] = bad ? nan : rh;
-                r_lo[at * 3 + c] = bad ? nan : rl;
+                    for (int c = 0; c < 3; ++c) {
+                        double v = p[jr][h][e][c];
+                        if constexpr (BC) v = fma(bc.gvec64[i], r0[c], v);
+                        float rh, rl32;
+                        split(v, rh, rl32);
+                        r_hi[at * 3 + c] = bad ? nan : rh;
+                        r_lo[at * 3 + c] = bad ? nan : rl32;
+                    }
+                }
             }
-        }
     }
 }
 
@@ -304,13 +499,14 @@ int launch_na(const float* qes_hi, const float* qes_lo, int batch, int npts, int
               const double* dn64t, const double* ptab64, const double* din64, Boundary bc,
               int iters, int corr_iters, float rho2_limit, float* q_hi, float* q_lo,
               float* r_hi, float* r_lo, cudaStream_t stream) {
-    constexpr size_t bytes = panel_bytes<P>();
+    using C = tc::Cfg<P>;
+    constexpr size_t bytes = smem_bytes<P>();
     const cudaError_t err = cudaFuncSetAttribute(
         rod_shape_refined_wide_kernel<P, NA, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = blocks_for(batch, Layout<P>::R);
-    rod_shape_refined_wide_kernel<P, NA, BC><<<blocks, kThreads, bytes, stream>>>(
+    const int blocks = blocks_for(batch, C::R);
+    rod_shape_refined_wide_kernel<P, NA, BC><<<blocks, C::kThreads, bytes, stream>>>(
             qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t, ptab64, din64, bc,
             iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
     return (int)cudaGetLastError();

@@ -37,10 +37,15 @@ traffic is ~ 72 bytes in and 15 x 14 x 4 = 840 bytes out per rod; it is
 FMA bound.  Same design as K1 (one P-lane group per rod, a lane per point,
 G's f32 row in registers), plus ``Dn_NN`` and ``G`` in FP64 in shared
 memory, stored transposed so that a column read is one conflict-free
-row of doubles.  K3 wide runs the f32 loops as K1 wide does (a rod spans
-several warps, G^T streamed through L1/L2 against a shared-memory panel),
-reads ``Dn_NN^T`` and ``G^T`` in FP64 from device memory for the two FP64
-products, and takes the rho sentinel's max with a shared-memory atomic.
+row of doubles.  K3 wide and K5 wide run the f32 products on the tensor
+cores (``csrc/tc_picard.cuh``): 3xTF32 ``mma.sync`` tiles, G^T and the
+panel in shared memory, each operand split as ``hi = tf32(x)``,
+``lo = tf32(x - hi)`` and the product summed as ``G_lo T_hi + G_hi T_lo +
+G_hi T_hi`` (one TF32 pass would miss the 1e-8 gate), each 16-deep step in
+a fresh tile added to the state in FP32 (the tensor cores' own FP32 sum
+truncates).  They read ``Dn_NN^T`` and ``G^T`` in FP64 from device memory
+for the two FP64 products, and take the rho sentinel's max with a
+shared-memory atomic.
 
 Beside each kernel: its plain PyTorch version (CPU tensors only in the
 wrapper; a CUDA tensor launches the kernel or raises) and a launch count

@@ -79,10 +79,11 @@ def test_k3_kernel_matches_plain(cuda, n, na):
         torch.testing.assert_close(ja, jb, atol=K3_TOL, rtol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("n,na", [(34, 3), (65, 6), (66, 3), (256, 6), (513, 3)])
+@pytest.mark.parametrize("n,na", [(34, 3), (65, 6), (66, 3), (130, 3), (256, 6), (513, 3)])
 def test_wide_kernels_match_plain(cuda, n, na):
     """K1, K2 and K3 wide at the edges of the wide range: n-1 = 33, 64,
-    65, 255 and the cap 512; a ragged batch."""
+    65, 255 and the cap 512, and n-1 = 129 (P = 256, the refined kernel's
+    last G slab ragged); a ragged batch."""
     b = B if n < 200 else 203
     cfg = rod.RodConfig(n=n, na=na)
     hi, lo = _qes(cuda, na, n)
@@ -137,8 +138,8 @@ def _inits(cuda, b, seed):
             dd.split_f64(torch.tensor(rng.uniform(-1.0, 1.0, (b, 3)), device=cuda)))
 
 
-@pytest.mark.parametrize("n,na", [(8, 3), (16, 6), (33, 3), (34, 6), (65, 3), (256, 3),
-                                  (513, 6)])
+@pytest.mark.parametrize("n,na", [(8, 3), (16, 6), (33, 3), (34, 6), (65, 3), (130, 6),
+                                  (256, 3), (513, 6)])
 def test_bc_kernels_match_plain(cuda, n, na):
     """K4 and K5, narrow and wide, with random unit q0 and r0 ~ U(-1, 1)."""
     b = B if n < 200 else 203

@@ -20,6 +20,9 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.ops i
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.utils import oracle
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import rod
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    doubledouble as dd,
+)
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
     refined_kernel as rfk,
     rod_kernel as rk,
@@ -147,3 +150,55 @@ def test_wide_routing_and_limits():
             call()
     with pytest.raises(ValueError, match="32 < n-1 <= 512"):
         rk.rod_shape_fused_wide(qes, rod.RodConfig(n=33))
+
+
+def _tf32(x):
+    """f32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as the tensor cores' ``cvt.rna.tf32.f32``."""
+    rounded = ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def _tf32_matmul(passes):
+    """``torch.matmul`` with its f32 products formed as the wide refined
+    kernels form them on the tensor cores: ``a_lo b_hi + a_hi b_lo +
+    a_hi b_hi`` with ``x_hi = tf32(x)``, ``x_lo = tf32(x - x_hi)``
+    (``passes=3``), or ``a_hi b_hi`` alone (``passes=1``).  FP64 products
+    stay FP64, as in the kernels."""
+    matmul = torch.matmul
+
+    def product(a, b):
+        if a.dtype != torch.float32:
+            return matmul(a, b)
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        if passes == 1:
+            return matmul(a_hi, b_hi)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        return matmul(a_lo, b_hi) + matmul(a_hi, b_lo) + matmul(a_hi, b_hi)
+    return product
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_refined_wide_3xtf32_products_meet_the_gate(n, monkeypatch):
+    """The wide kernels form every f32 product with G as three TF32
+    products: the plain refined arithmetic with its G products rounded so
+    stays within the 1e-8 gate of the f64 oracle, and one TF32 pass does
+    not, which is why the kernels take three."""
+    x = torch.tensor([1 + 2**-11, -(1 + 3 * 2**-11), 1 + 2**-12], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + 2**-10, -(1 + 2**-9), 1.0]   # ties away from zero
+    rng = np.random.default_rng(n)
+    qe64 = 0.5 * rng.standard_normal((2, 9))
+    qe64[0] = oracle.demo_qe()
+    hi, lo = rod.split_strain(torch.tensor(qe64))
+    errs = {}
+    for passes in (3, 1):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "matmul", _tf32_matmul(passes))
+            out = rfk.rod_shape_refined_plain(hi, lo, rod.RodConfig(n=n), 28, 28)
+        q, r = dd.join_f64(out[0], out[1]), dd.join_f64(out[2], out[3])
+        errs[passes] = 0.0
+        for i in range(2):
+            q_ref, r_ref = oracle.integrate_position(qe64[i], n=n)
+            errs[passes] = max(errs[passes], _rel(q[i].numpy().T.reshape(-1), q_ref),
+                               _rel(r[i].numpy(), r_ref))
+    assert errs[3] < GATE < errs[1]
