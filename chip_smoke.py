@@ -7,7 +7,7 @@ which raises on failure (exit code != 0, no result lines):
 2. build the CUDA kernels from ``csrc/``, one nvcc per source, all at once:
    K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512); registers and
    spills per kernel, and whether each library's SASS holds tensor-core
-   (HMMA) instructions (the refined wide one must);
+   (HMMA) instructions (both wide ones must);
 3. each kernel against its plain PyTorch version on the card: narrow at
    N in {8, 16, 33}, wide at n-1 in {33, 63, 64, 65, 128, 255, 512} and a
    ragged batch, na in {3, 6}; K4 and K5 with random unit q0 and
@@ -29,8 +29,8 @@ which raises on failure (exit code != 0, no result lines):
    cores) and (K2) the batched ``torch.linalg.solve`` of the same systems, of
    each path
    as a whole call; a torch.profiler breakdown (device busy,
-   idle share, top kernels) of the N=16 headline, refined n=256, statics
-   N=16, refined 3 x n=16 chain and segmented statics calls.
+   idle share, top kernels) of the N=16 headline, refined n=256, staged
+   n=64, statics N=16, refined 3 x n=16 chain and segmented statics calls.
 
 The last three lines of standard output are a JSON line with the kernels,
 the card's name and power limit as nvidia-smi prints them, and the JSON
@@ -170,8 +170,8 @@ def phase_build() -> None:
         hmma = sass.count("HMMA")
         print(f"built {lib._name.split('/')[-1]}: nvcc {lib.build_seconds:.1f} s; tensor-core "
               f"(HMMA) instructions in its SASS: {'yes' if hmma else 'no'} ({hmma})")
-        if "refined_wide_kernel" in lib._name and not hmma:
-            raise AssertionError("the refined wide kernels hold no HMMA instruction")
+        if "wide_kernel" in lib._name and not hmma:
+            raise AssertionError(f"{lib._name}: the wide kernels hold no HMMA instruction")
     print(f"all built in {time.perf_counter() - t0:.1f} s (parallel)")
     rows = []   # (library, mangled kernel, ptxas line)
     for log in sorted(build.BUILD_DIR.glob("*.nvcc.log")):
@@ -216,9 +216,9 @@ extern "C" int tc_probe(const float* a, const float* b, float* c, int tiles) {
 def phase_accumulation_probe(dev: torch.device) -> None:
     """How the tensor cores round the FP32 sum of an ``mma.sync`` tile:
     ``c + a b`` for TF32-exact ``a``, ``b`` against the f64 sum rounded to
-    the nearest f32.  The refined wide kernels sum each k-step's three
-    products in a fresh tile and add it to the state in FP32 because this
-    sum is not rounded to nearest."""
+    the nearest f32.  The wide kernels sum each k-step's products in a
+    fresh tile and add it to the state in FP32 because this sum is not
+    rounded to nearest."""
     src, so = build.BUILD_DIR / "tc_probe.cu", build.BUILD_DIR / "libtc_probe.so"
     src.write_text(PROBE_CU)
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
@@ -846,7 +846,7 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
 
 def phase_path_timing(dev: torch.device, card: str) -> None:
     """Each wide path as a whole call (CUDA events around the call, host
-    syncs included), and a profiler breakdown of three of them."""
+    syncs included), and a profiler breakdown of four of them."""
     qe64, qe6, loads = wide_inputs(dev)
     batches = {"refined n=64 single kernel": 32768, "refined n=256 single kernel": 8192,
                "refined n=64 staged": 32768, "Reissner na=6 n=64": 8192, "fused n=64": 32768,
@@ -861,6 +861,7 @@ def phase_path_timing(dev: torch.device, card: str) -> None:
     profiled = {"headline N=16 B=131072": (lambda: rod.rod_shape_refined_fused(
                     (hi, lo), refine_steps=1), 10),
                 "refined n=256 single kernel": (paths["refined n=256 single kernel"][0], 10),
+                "refined n=64 staged": (paths["refined n=64 staged"][0], 3),
                 "statics N=16 B=16384": (paths["statics N=16 B=16384"][0], 3)}
     for what, (fn, reps) in profiled.items():
         prof = device_breakdown(fn, warmup=1, reps=reps)

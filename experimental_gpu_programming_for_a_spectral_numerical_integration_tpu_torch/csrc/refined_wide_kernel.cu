@@ -47,15 +47,22 @@
 //
 // C interface as rod_wide_kernel.cu; qes_lo, q0_lo and r0_lo may be NULL (zero
 // low words) and rho2_limit < 0 disables the sentinel.  g32t, dn64t and g64t are the
-// transposed operators, zero-padded to P x P.
+// transposed operators, zero-padded to P x P (g32t: the first plane of
+// rod_wide_kernel.cu's gt).
 #include "refined_bc.cuh"
 #include "tc_picard.cuh"
-#include "wide_common.cuh"
 
 namespace {
 
-using namespace wide;
 using namespace refined_bc;
+
+// Launch shape per padded width P (tc_picard.cuh): 8 (point, rod) pairs a
+// thread at P = 64/128, 16 above; two blocks per SM at P = 64.
+template <int P> struct Shape;
+template <> struct Shape<64> : tc::Cfg<64, 32, 2, 4, 64, 2> {};
+template <> struct Shape<128> : tc::Cfg<128, 16, 8, 1, 128, 1> {};
+template <> struct Shape<256> : tc::Cfg<256, 16, 8, 1, 32, 1> {};
+template <> struct Shape<512> : tc::Cfg<512, 8, 8, 1, 16, 1> {};
 
 __device__ __forceinline__ void split(double v, float& hi, float& lo) {
     hi = __double2float_rn(v);
@@ -81,7 +88,7 @@ __device__ __forceinline__ double strain64(const float* __restrict__ hi,
 // slots for g_rhs.
 template <int P>
 __host__ __device__ constexpr size_t region_bytes() {
-    using C = tc::Cfg<P>;
+    using C = Shape<P>;
     const size_t ops = (size_t)(C::kGFloats + C::kTFloats) * sizeof(float);
     const size_t s64 = (size_t)P * 4 * C::R * sizeof(double);
     return ops > s64 ? ops : s64;
@@ -89,12 +96,9 @@ __host__ __device__ constexpr size_t region_bytes() {
 
 template <int P>
 __host__ __device__ constexpr size_t smem_bytes() {
-    using C = tc::Cfg<P>;
+    using C = Shape<P>;
     return region_bytes<P>() + (size_t)C::kAcc * C::kThreads * sizeof(float);
 }
-
-// The thread's accumulator entries of pair (mt, jr, h, e), component c.
-#define ACC(mt, jr, h, e, c) acc[mt][(c) * C::JR + (jr)][2 * (h) + (e)]
 
 // K/2 at the thread's pairs, f32-rounded from FP64 (zero for a rod past the
 // batch), and each rod's max |K/2|^2 over the thread's points.
@@ -104,9 +108,9 @@ __device__ __forceinline__ void half_strain(const float* __restrict__ qes_hi,
                                             const double* __restrict__ ptab64, int batch,
                                             int nq, int ne, long long rod_base,
                                             const tc::Lane& l,
-                                            float (&kh)[tc::Cfg<P>::MT][tc::Cfg<P>::JR][2][2][3],
-                                            float (&rho2)[tc::Cfg<P>::JR][2]) {
-    using C = tc::Cfg<P>;
+                                            float (&kh)[Shape<P>::MT][Shape<P>::JR][2][2][3],
+                                            float (&rho2)[Shape<P>::JR][2]) {
+    using C = Shape<P>;
 #pragma unroll
     for (int jr = 0; jr < C::JR; ++jr)
 #pragma unroll
@@ -130,83 +134,8 @@ __device__ __forceinline__ void half_strain(const float* __restrict__ qes_hi,
         }
 }
 
-// Each pair's 4-vector v(mt, jr, h, e) into T.
-template <int P, class V>
-__device__ __forceinline__ void write_panel(float* ts, const tc::Lane& l, V v) {
-    using C = tc::Cfg<P>;
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-        for (int jr = 0; jr < C::JR; ++jr)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const float4 t0 = v(mt, jr, h, 0), t1 = v(mt, jr, h, 1);
-                float* row = ts + tc::pair_row(l, mt, h) * C::TS + tc::pair_rod(l, jr, 0);
-                *reinterpret_cast<float2*>(row) = make_float2(t0.x, t1.x);
-                *reinterpret_cast<float2*>(row + C::R) = make_float2(t0.y, t1.y);
-                *reinterpret_cast<float2*>(row + 2 * C::R) = make_float2(t0.z, t1.z);
-                *reinterpret_cast<float2*>(row + 3 * C::R) = make_float2(t0.w, t1.w);
-            }
-}
-
-
-// The thread's pairs in a loop nest: f(mt, jr, h, e, point, block-local rod).
-template <int P, class F>
-__device__ __forceinline__ void for_pairs(const tc::Lane& l, F f) {
-    using C = tc::Cfg<P>;
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-        for (int jr = 0; jr < C::JR; ++jr)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    f(mt, jr, h, e, tc::pair_row(l, mt, h), tc::pair_rod(l, jr, e));
-}
-
-// The thread's accumulator tile <-> its private slots (layout [j][thread]:
-// conflict-free, not shared with other threads).
-template <int P>
-__device__ __forceinline__ void store_acc(float* slots, int tid,
-                                          const float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
-    using C = tc::Cfg<P>;
-#pragma unroll
-    for (int j = 0; j < C::kAcc; ++j) slots[j * C::kThreads + tid] = (&acc[0][0][0])[j];
-}
-
-template <int P>
-__device__ __forceinline__ void load_acc(const float* slots, int tid,
-                                         float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
-    using C = tc::Cfg<P>;
-#pragma unroll
-    for (int j = 0; j < C::kAcc; ++j) (&acc[0][0][0])[j] = slots[j * C::kThreads + tid];
-}
-
-// Picard fixed point s = g_rhs + G (A(K/2) s), `iters` steps from s = g_rhs,
-// into acc; g_rhs is in the thread's slots.  Every thread of the block must
-// call it with the same `iters`.
-template <int P>
-__device__ __forceinline__ void picard_tc(float* gs, const float* __restrict__ gt, float* ts,
-                                          const float* g_rhs, int npts, int tid,
-                                          const tc::Lane& l,
-                                          const float (&kh)[tc::Cfg<P>::MT][tc::Cfg<P>::JR][2][2][3],
-                                          int iters,
-                                          float (&acc)[tc::Cfg<P>::MT][tc::Cfg<P>::NT][4]) {
-    using C = tc::Cfg<P>;
-    load_acc<P>(g_rhs, tid, acc);
-    for (int it = 0; it < iters; ++it) {
-        write_panel<P>(ts, l, [&](int mt, int jr, int h, int e) {
-            return a_apply(kh[mt][jr][h][e], make_float4(ACC(mt, jr, h, e, 0), ACC(mt, jr, h, e, 1),
-                                                         ACC(mt, jr, h, e, 2), ACC(mt, jr, h, e, 3)));
-        });
-        load_acc<P>(g_rhs, tid, acc);
-        tc::gemm<P>(gs, gt, ts, npts, tid, l, acc);
-    }
-}
-
 template <int P, int NA, bool BC>
-__global__ void __launch_bounds__(tc::Cfg<P>::kThreads, tc::Cfg<P>::kMinBlocks)
+__global__ void __launch_bounds__(Shape<P>::kThreads, Shape<P>::kMinBlocks)
 rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               const float* __restrict__ qes_lo, int batch, int npts, int ne,
                               const float* __restrict__ g32t, const float* __restrict__ gvec32,
@@ -218,7 +147,7 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
                               float rho2_limit, float* __restrict__ q_hi,
                               float* __restrict__ q_lo, float* __restrict__ r_hi,
                               float* __restrict__ r_lo) {
-    using C = tc::Cfg<P>;
+    using C = Shape<P>;
     constexpr int MT = C::MT, JR = C::JR, NT = C::NT, R = C::R;
     extern __shared__ double2 smem[];
     float* gs = reinterpret_cast<float*>(smem);          // G^T (resident or slabs)
@@ -228,12 +157,12 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
     __shared__ int rho_bits[R];
 
     const int tid = threadIdx.x;
-    const tc::Lane l = tc::lane_of<P>(tid);
+    const tc::Lane l = tc::lane_of<C>(tid);
     const long long rod_base = (long long)blockIdx.x * R;
     const int nq = NA * ne;
     if (tid < R) rho_bits[tid] = 0;
     __syncthreads();
-    tc::request_g<P>(gs, g32t, tid);
+    tc::request_g<C>(gs, g32t, tid);
 
     // 1. K/2 in FP64, rounded to f32, and the rho sentinel: max over the
     // rod's points of |K/2|^2 (non-negative floats order as their bits).
@@ -249,7 +178,7 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
     // 2. f32 base solve s (in acc) from g_rhs = gvec32 ⊗ q0_hi (K5) or
     // gvec32 ⊗ (1,0,0,0) (K3) in the slots.
     float acc[MT][NT][4];
-    for_pairs<P>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
+    tc::for_pairs<C>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
         const float gv = gvec32[i];
         if constexpr (BC) {
             float4 q0h = make_float4(1.f, 0.f, 0.f, 0.f);
@@ -263,8 +192,9 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
             ACC(mt, jr, h, e, 1) = ACC(mt, jr, h, e, 2) = ACC(mt, jr, h, e, 3) = 0.f;
         }
     });
-    store_acc<P>(slots, tid, acc);
-    picard_tc<P>(gs, g32t, ts, slots, npts, tid, l, kh, iters, acc);
+    tc::store_acc<C>(slots, tid, acc);
+    const auto g_rhs = [&](float (&a)[MT][NT][4]) { tc::load_acc<C>(slots, tid, a); };
+    tc::picard<C>(gs, g32t, ts, npts, tid, l, kh, iters, acc, g_rhs);
 
     // 3. s into the FP64 panel s64[k][c R + rod] over gs and ts (and into
     // q_hi, this thread's own points, until step 5), then the FP64 residual
@@ -272,7 +202,7 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
     double* s64 = panel64;
     tc::cp_async_wait<0>();
     __syncthreads();
-    for_pairs<P>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
+    tc::for_pairs<C>(l, [&](int mt, int jr, int h, int e, int i, int rl) {
         double* at = s64 + (size_t)i * 4 * R + rl;
 #pragma unroll
         for (int c = 0; c < 4; ++c) at[c * R] = ACC(mt, jr, h, e, c);
@@ -356,21 +286,16 @@ rod_shape_refined_wide_kernel(const float* __restrict__ qes_hi,
 
     // 4. f32 correction: g_res = G res, then Picard from g_res.
     __syncthreads();   // every thread is done with s64: G^T and T take it back
-    tc::request_g<P>(gs, g32t, tid);
-    write_panel<P>(ts, l, [&](int mt, int jr, int h, int e) {
+    tc::request_g<C>(gs, g32t, tid);
+    tc::write_panel<C>(ts, l, [&](int mt, int jr, int h, int e) {
         return make_float4(ACC(mt, jr, h, e, 0), ACC(mt, jr, h, e, 1), ACC(mt, jr, h, e, 2),
                            ACC(mt, jr, h, e, 3));
     });
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-    tc::gemm<P>(gs, g32t, ts, npts, tid, l, acc);
-    store_acc<P>(slots, tid, acc);
+    tc::zero_acc<C>(acc);
+    tc::gemm<C>(gs, g32t, ts, npts, tid, l, acc);
+    tc::store_acc<C>(slots, tid, acc);
     half_strain<P>(qes_hi, qes_lo, ptab64, batch, nq, ne, rod_base, l, kh, rho2);
-    picard_tc<P>(gs, g32t, ts, slots, npts, tid, l, kh, corr_iters, acc);
+    tc::picard<C>(gs, g32t, ts, npts, tid, l, kh, corr_iters, acc, g_rhs);
 
     // 5. FP64 combine x = s + delta (written out at once, split or poisoned)
     // and tangent into the FP64 panel, then the position.  The panel lies
@@ -499,17 +424,10 @@ int launch_na(const float* qes_hi, const float* qes_lo, int batch, int npts, int
               const double* dn64t, const double* ptab64, const double* din64, Boundary bc,
               int iters, int corr_iters, float rho2_limit, float* q_hi, float* q_lo,
               float* r_hi, float* r_lo, cudaStream_t stream) {
-    using C = tc::Cfg<P>;
-    constexpr size_t bytes = smem_bytes<P>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        rod_shape_refined_wide_kernel<P, NA, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = blocks_for(batch, C::R);
-    rod_shape_refined_wide_kernel<P, NA, BC><<<blocks, C::kThreads, bytes, stream>>>(
-            qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t, dn64t, ptab64, din64, bc,
-            iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo);
-    return (int)cudaGetLastError();
+    return tc::launch<Shape<P>>(rod_shape_refined_wide_kernel<P, NA, BC>, smem_bytes<P>(), batch,
+                                stream, qes_hi, qes_lo, batch, npts, ne, g32t, gvec32, g64t,
+                                dn64t, ptab64, din64, bc, iters, corr_iters, rho2_limit, q_hi,
+                                q_lo, r_hi, r_lo);
 }
 
 template <int P, bool BC>
@@ -534,7 +452,7 @@ int refined_entry(const float* qes_hi, const float* qes_lo, int batch, int npts,
                   const double* dn64t, const double* ptab64, const double* din64,
                   Boundary bc, int iters, int corr_iters, double rho2_limit, float* q_hi,
                   float* q_lo, float* r_hi, float* r_lo, void* stream) {
-    if (!valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
+    if (!tc::valid_width(p, npts) || batch <= 0 || (na != 3 && na != 6) || ne < 1 ||
         iters < 0 || corr_iters < 0 ||
         (BC && (bc.q0_hi == nullptr || bc.r0_hi == nullptr || bc.gvec64 == nullptr))) {
         return (int)cudaErrorInvalidValue;

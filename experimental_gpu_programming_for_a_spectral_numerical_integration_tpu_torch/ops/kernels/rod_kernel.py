@@ -29,7 +29,7 @@ TPU's tiles:
 What bounds them on an H100: at N=16 a rod costs about 20 x (15*15*4 +
 15*12) = 21,600 FP32 FMAs against ~456 bytes of device traffic (9 floats
 in, 15 x 7 floats out), about 47 FMAs per byte, far above the card's
-~10 FP32 FLOP per byte of HBM bandwidth: they are FP32-FMA bound.  The
+~10 FP32 FLOP per byte of HBM bandwidth: they are operations bound.  The
 narrow design therefore keeps every operand on chip: one group of P = 8, 16 or
 32 lanes per rod (P the next power of two >= n-1; 2 rods per warp at
 N=16), lane i owns point i's quaternion, its curvature and row i of G in
@@ -37,17 +37,18 @@ registers; each Picard step exchanges the 4-vector ``A(K) s`` through a
 per-rod shared-memory slot (one broadcast 16-byte load per column j), so
 the inner loop is 4 FMAs per shared load and device memory sees only ``qe``
 in and the result out.  On wide grids a row of G no longer fits a lane's
-registers (255 floats at n=256) nor G a block's shared memory (260 KB), so
-the wide kernels give a rod several warps: a block of 256 threads holds R
-rods, each thread TM points of one rod; a Picard step exchanges ``A(K/2) s``
-through a shared-memory panel and streams G^T through L1/L2
-(``csrc/wide_common.cuh``).  The TPU layout (128-sublane rod packing, the
-bf16x3 matmul emulation) does not carry over.
+registers (255 floats at n=256), so the wide kernels run each Picard step
+of a block of R rods as one GEMM on the tensor cores (``csrc/tc_picard.cuh``,
+shared with the refined wide kernels): the points as M, the rods' four
+components as N, G^T and ``A(K/2) s`` in shared memory, the state in the
+MMA accumulators.  The TPU layout (128-sublane rod packing, the bf16x3
+matmul emulation) does not carry over.
 
-Arithmetic is plain FP32 FMA for every ``precision`` value the JAX API
-accepts ('float32', 'high', 'default', 'highest'): the TPU's bf16 pass
-count has no Hopper counterpart.  Tensor cores for the G products are
-later work.
+Arithmetic is FP32 for every ``precision`` value the JAX API accepts
+('float32', 'high', 'default', 'highest'): the TPU's bf16 pass count has
+no Hopper counterpart.  The narrow kernels use FP32 FMAs; the wide ones
+form their products with G as 3xTF32 tensor-core products, as accurate as
+FP32 FMAs here (``tests/test_torch_wide.py``).
 
 Beside each kernel: a plain PyTorch version with the same math (the wrapper
 takes it for CPU tensors only; a CUDA tensor launches the kernel or raises)
@@ -135,7 +136,7 @@ class KernelConstants:
     g: torch.Tensor        # (P, P) G = Dn_NN^{-1}
     ptab: torch.Tensor     # (P, ne) basis table at the unknown points
     gvec: torch.Tensor     # (P,) G (-dn_in): G rhs for q0 = (1,0,0,0)
-    gt: torch.Tensor | None   # (P, P) G^T, wide grids only
+    gt: torch.Tensor | None   # (3, P, P) G^T, its TF32 hi and lo parts; wide grids only
 
 
 def host_operators(cfg: RodConfig):
@@ -146,6 +147,18 @@ def host_operators(cfg: RodConfig):
     dn_nn, dn_in = chebyshev.split_endpoint(dn, "last")
     ginv = chebyshev.integration_matrix(cfg.n, cfg.length)
     return ginv, dn_nn, dn_in[:, 0], cfg.basis_table
+
+
+def tf32_planes(a: torch.Tensor) -> torch.Tensor:
+    """f32 ``a`` stacked with its split into TF32 parts, ``(a, hi, lo)``:
+    ``hi = tf32(a)``, ``lo = tf32(a - hi)``, each rounded to nearest with
+    ties away from zero as the tensor cores' ``cvt.rna.tf32.f32`` rounds.
+    The wide kernels read a split operand from here instead of splitting it
+    at every product."""
+    def tf32(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = tf32(a)
+    return torch.stack([a, hi, tf32(a - hi)])
 
 
 def padded(a: np.ndarray, shape, dtype, device) -> torch.Tensor:
@@ -165,7 +178,7 @@ def _constants(cfg: RodConfig, device: torch.device) -> KernelConstants:
         g=padded(ginv, (p, p), f32, device),
         ptab=padded(table, (p, cfg.ne), f32, device),
         gvec=padded(-(ginv @ dn_in), (p,), f32, device),
-        gt=padded(ginv.T, (p, p), f32, device) if is_wide(npts) else None,
+        gt=tf32_planes(padded(ginv.T, (p, p), f32, device)) if is_wide(npts) else None,
     )
 
 

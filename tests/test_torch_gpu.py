@@ -112,6 +112,24 @@ def test_wide_kernels_match_plain(cuda, n, na):
         torch.testing.assert_close(ja, jp, atol=K3_TOL, rtol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("n,iters,scale", [(64, 0, 1.0), (256, 0, 1.0), (64, 20, 1e-7),
+                                           (256, 20, 1e-7)])
+def test_k2_wide_matches_plain(cuda, n, iters, scale):
+    """K2 wide with iters=0 (x = G rhs alone, one GEMM) and with a
+    residual-scale rhs, as the staged refined path gives it.  K2 is linear
+    in rhs, so the f32 gate scales with it."""
+    b = B if n < 200 else 203
+    cfg = rod.RodConfig(n=n)
+    hi, _ = _qes(cuda, 3, 300 + n)
+    rhs = scale * torch.randn((b, n - 1, 4), device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(n))
+    before = rk.picard_correction_fused_wide.launches
+    x = rk.picard_correction_fused(hi[:b].contiguous(), rhs, cfg, iters=iters)
+    assert rk.picard_correction_fused_wide.launches == before + 1
+    torch.testing.assert_close(x, rk.picard_correction_plain(hi[:b], rhs, cfg, iters=iters),
+                               atol=F32_TOL * scale, rtol=0)
+
+
 @pytest.mark.parametrize("n", [16, 64])
 def test_statics_batched_matches_per_sample(cuda, n):
     """The batched Newton on the kernels against the per-sample Newton on

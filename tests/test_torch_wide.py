@@ -202,3 +202,43 @@ def test_refined_wide_3xtf32_products_meet_the_gate(n, monkeypatch):
             errs[passes] = max(errs[passes], _rel(q[i].numpy().T.reshape(-1), q_ref),
                                _rel(r[i].numpy(), r_ref))
     assert errs[3] < GATE < errs[1]
+
+
+@pytest.mark.parametrize("what,n", [("K1", 64), ("K1", 256), ("staged", 64)])
+def test_wide_f32_3xtf32_products_meet_the_gates(what, n, monkeypatch):
+    """K1/K4 wide and K2 wide form their f32 products with G (G T in the
+    Picard loop, G rhs and G b) as three TF32 products.  The plain versions
+    with those products so rounded stay within 2x of their FP32 error
+    against the f64 oracle and inside the 5e-5 gate (K1), and inside the
+    1e-8 gate on the staged refined path, whose K2 solves carry it (its
+    residual and quadrature are FP64, which the rounding leaves alone).
+    One TF32 pass is at least 20x worse on K1."""
+    rng = np.random.default_rng(n)
+    qe64 = 0.5 * rng.standard_normal((2, 9))
+    qe64[0] = oracle.demo_qe()
+    cfg = rod.RodConfig(n=n)
+    refs = [oracle.integrate_position(qe, n=n) for qe in qe64]
+
+    def error(passes):
+        with monkeypatch.context() as m:
+            if passes:
+                m.setattr(torch, "matmul", _tf32_matmul(passes))
+            if what == "K1":
+                q, r = rk.rod_shape_fused_plain(torch.tensor(qe64, dtype=torch.float32), cfg, 24)
+            else:
+                sol = rod.rod_shape_refined_fused(rod.split_strain(torch.tensor(qe64)), cfg=cfg,
+                                                  refine_steps=2, iters=24)
+                q, r = sol.quaternions_f64(), sol.positions_f64()
+        if what == "K1":
+            return max(max(np.abs(q[i].numpy().T.reshape(-1) - q_ref).max(),
+                           np.abs(r[i].numpy() - r_ref).max())
+                       for i, (q_ref, r_ref) in enumerate(refs))
+        return max(max(_rel(q[i].numpy().T.reshape(-1), q_ref), _rel(r[i].numpy(), r_ref))
+                   for i, (q_ref, r_ref) in enumerate(refs))
+
+    fp32, three = error(None), error(3)
+    if what == "K1":
+        assert three <= 2 * fp32 and three < F32_TOL
+        assert error(1) >= 20 * fp32
+    else:
+        assert three < GATE
