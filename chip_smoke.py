@@ -7,11 +7,12 @@ which raises on failure (exit code != 0, no result lines):
 2. build the CUDA kernels from ``csrc/``, one nvcc per source, all at once:
    K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512); registers and
    spills per kernel, and whether each library's SASS holds tensor-core
-   (HMMA) instructions (both wide ones must);
+   (HMMA) instructions (all but the refined narrow one must); a probe of how
+   ``mma.sync`` rounds its FP32 tile sum and reads an f32 operand;
 3. each kernel against its plain PyTorch version on the card: narrow at
-   N in {8, 16, 33}, wide at n-1 in {33, 63, 64, 65, 128, 255, 512} and a
-   ragged batch, na in {3, 6}; K4 and K5 with random unit q0 and
-   r0 ~ U(-1, 1) per rod;
+   N in {8, 16, 32, 33} and a ragged batch, wide at n-1 in
+   {33, 63, 64, 65, 128, 255, 512} and a ragged batch, na in {3, 6}; K4 and
+   K5 with random unit q0 and r0 ~ U(-1, 1) per rod;
 4. the paths at real size, each with the launch counts set to 0 just before
    it and read just after, NaN checks, and the port's f64 dense solve on the
    card as reference: the N=16 slice at B=131072 (``rod_shape_refined_fused``
@@ -24,11 +25,13 @@ which raises on failure (exit code != 0, no result lines):
    the chains 3 x n=16 (B=131072) and 2 x n=64 (B=32768) on K4/K4 wide and
    K5/K5 wide against the f64 dense chain, and the segmented statics Newton
    (B=8192; dd residual B=1024) against the per-sample Newton on the CPU;
-5. CUDA-event timings of each kernel beside its plain version, its bound
+5. CUDA-event timings of each kernel (one call at a time, and back to back)
+   beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
    cores) and (K2) the batched ``torch.linalg.solve`` of the same systems, of
    each path
-   as a whole call; a torch.profiler breakdown (device busy,
+   as a whole call (the N=16 fused and staged calls among them); a
+   torch.profiler breakdown (device busy,
    idle share, top kernels) of the N=16 headline, refined n=256, staged
    n=64, statics N=16, refined 3 x n=16 chain and segmented statics calls.
 
@@ -170,8 +173,9 @@ def phase_build() -> None:
         hmma = sass.count("HMMA")
         print(f"built {lib._name.split('/')[-1]}: nvcc {lib.build_seconds:.1f} s; tensor-core "
               f"(HMMA) instructions in its SASS: {'yes' if hmma else 'no'} ({hmma})")
-        if "wide_kernel" in lib._name and not hmma:
-            raise AssertionError(f"{lib._name}: the wide kernels hold no HMMA instruction")
+        if "refined_kernel-" not in lib._name and not hmma:
+            raise AssertionError(f"{lib._name}: its kernels run on the tensor cores but its "
+                                 "SASS holds no HMMA instruction")
     print(f"all built in {time.perf_counter() - t0:.1f} s (parallel)")
     rows = []   # (library, mangled kernel, ptxas line)
     for log in sorted(build.BUILD_DIR.glob("*.nvcc.log")):
@@ -216,9 +220,11 @@ extern "C" int tc_probe(const float* a, const float* b, float* c, int tiles) {
 def phase_accumulation_probe(dev: torch.device) -> None:
     """How the tensor cores round the FP32 sum of an ``mma.sync`` tile:
     ``c + a b`` for TF32-exact ``a``, ``b`` against the f64 sum rounded to
-    the nearest f32.  The wide kernels sum each k-step's products in a
-    fresh tile and add it to the state in FP32 because this sum is not
-    rounded to nearest."""
+    the nearest f32.  The kernels sum each k-step's products in a fresh
+    tile and add it to the state in FP32 because this sum is not rounded
+    to nearest.  And how they read an f32 ``a`` that is not TF32-exact:
+    the narrow kernels pass the lo part of their split so, counting on the
+    low 13 bits being ignored (truncated); raises if they are not."""
     src, so = build.BUILD_DIR / "tc_probe.cu", build.BUILD_DIR / "libtc_probe.so"
     src.write_text(PROBE_CU)
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
@@ -243,6 +249,25 @@ def phase_accumulation_probe(dev: torch.device) -> None:
         print(f"  tensor-core FP32 accumulation ({what}): {(out == rn).mean():.1%} of sums "
               f"rounded to nearest, {(out == rz).mean():.1%} toward zero; mean error "
               f"{ulps.mean():+.3f} ulp (toward zero < 0)")
+
+    def product(a, b):
+        ta, tb = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
+        tcc = torch.zeros((tiles, 16, 8), dtype=torch.float32, device=dev)
+        build.check_launch(lib.tc_probe(*(ctypes.c_void_p(v.data_ptr()) for v in (ta, tb, tcc)),
+                                        tiles), "tc_probe")
+        return tcc.cpu().numpy()
+
+    a = rng.standard_normal((tiles, 16, 8)).astype(np.float32)
+    b = tf32(rng.standard_normal((tiles, 8, 8)))
+    raw = product(a, b)
+    trunc = product((a.view(np.int32) & -0x2000).view(np.float32), b)
+    same = float((raw == trunc).all(axis=(1, 2)).mean())
+    print(f"  tensor-core f32 operand: {same:.1%} of tiles with raw f32 a equal those with a "
+          f"truncated to TF32, {float((raw == product(tf32(a), b)).all(axis=(1, 2)).mean()):.1%} "
+          f"those with a rounded")
+    if same != 1.0:
+        raise AssertionError("mma.sync does not truncate an f32 operand to TF32: the narrow "
+                             "kernels' lo split (tf32_mma.cuh split_tf32_raw_lo) needs cvt.rna")
 
 
 def max_abs(a, b) -> float:
@@ -327,6 +352,9 @@ def phase_kernels_vs_plain(dev: torch.device, errors: dict) -> None:
         for na in (3, 6):
             compare_kernels(dev, errors, rng, npts + 1, na, B_CHECK if npts <= 128 else 512)
     compare_kernels(dev, errors, rng, 66, 6, 1001)     # ragged against every block shape
+    for na in (3, 6):                                  # n-1 = 31: P = 32 with a padded point
+        compare_kernels(dev, errors, rng, 32, na, B_CHECK)
+    compare_kernels(dev, errors, rng, 16, 6, 1001)     # ragged narrow: a warp part-filled
 
 
 def counted(what: str, fn, needs: tuple) -> tuple:
@@ -725,6 +753,17 @@ def timed(card: str, what: str, kernel, plain, batch: int, warmup: int = 3,
     return k, p
 
 
+def back_to_back_ms(fn, calls: int = 20) -> float:
+    """ms per call over ``calls`` calls launched back to back: each call's
+    host work overlaps the device work of the one before, so where that
+    device work is the longer this is the kernel's own time.  (``timed``
+    brackets single calls, host work before the launch included.)"""
+    def run():
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(run, warmup=1, reps=5) / calls
+
+
 def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
     """Each kernel at the shape its main path gives it, beside its plain
     version, its bound and (K2) one library call; the N=16 headline call."""
@@ -789,6 +828,7 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
             record(errors, key, max_abs(out, ref), F32_TOL, f"{key} {shape} B={batch}")
         del out, ref
         k, p = timed(card, f"{key} {shape} B={batch}", kernel, plain, batch)
+        print(f"  {key}: kernel {back_to_back_ms(kernel):.4f} ms a call back to back [{card}]")
         lib_ms = None
         if library is not None:
             a, b = collocation_system(*library)
@@ -845,13 +885,21 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
 
 
 def phase_path_timing(dev: torch.device, card: str) -> None:
-    """Each wide path as a whole call (CUDA events around the call, host
-    syncs included), and a profiler breakdown of four of them."""
+    """The N=16 fused and staged calls and each wide path as a whole call
+    (CUDA events around the call, host syncs included), and a profiler
+    breakdown of four of them."""
     qe64, qe6, loads = wide_inputs(dev)
-    batches = {"refined n=64 single kernel": 32768, "refined n=256 single kernel": 8192,
+    batches = {"fused N=16": B_REAL, "staged N=16": B_REAL,
+               "refined n=64 single kernel": 32768, "refined n=256 single kernel": 8192,
                "refined n=64 staged": 32768, "Reissner na=6 n=64": 8192, "fused n=64": 32768,
                "statics N=16 B=16384": 16384, "statics n=64 B=4096": 4096}
-    for what, (fn, _) in wide_paths(qe64, qe6, loads).items():
+    qe16 = torch.tensor(0.8 * np.random.default_rng(0).standard_normal((B_REAL, 9)), device=dev)
+    qe16[0] = rod.demo_qe(torch.float64, dev)        # phase 4's N=16 slice
+    q16 = rod.split_strain(qe16)
+    calls = {"fused N=16": (lambda: rod.rod_shape(q16[0], method="fused"), None),
+             "staged N=16": (lambda: rod.rod_shape_refined_fused(q16, refine_steps=2), None),
+             **wide_paths(qe64, qe6, loads)}
+    for what, (fn, _) in calls.items():
         slow = what.startswith("statics") or "staged" in what
         ms = cuda_time_ms(fn, warmup=1 if slow else 3, reps=3 if slow else 10)
         print(f"  {what}: {ms:.4f} ms per call -> {batches[what] / ms * 1e3:.4g} solves/s "

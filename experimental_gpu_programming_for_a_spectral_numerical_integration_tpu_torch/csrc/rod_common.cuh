@@ -1,4 +1,6 @@
-// Device pieces shared by the rod kernels (rod_kernel.cu, refined_kernel.cu).
+// Device pieces of the refined narrow kernels, K3 and K5 (refined_kernel.cu),
+// on the CUDA cores.  (K1, K2 and K4 narrow run on the tensor cores:
+// rod_kernel.cu.)
 //
 // Layout shared by every kernel: a block of kThreads threads holds
 // kThreads / P rods; rod `group` owns lanes [group*P, group*P + P) of the

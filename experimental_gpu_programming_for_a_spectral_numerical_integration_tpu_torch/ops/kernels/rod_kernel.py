@@ -2,7 +2,8 @@
 and the fused solve with per-rod boundary values.
 
 Sources: ``csrc/rod_kernel.cu`` (narrow grids, n-1 <= 32) and
-``csrc/rod_wide_kernel.cu`` (wide grids, 32 < n-1 <= 512).  They replace the
+``csrc/rod_wide_kernel.cu`` (wide grids, 32 < n-1 <= 512), both on
+``csrc/tf32_mma.cuh``.  They replace the
 JAX package's Pallas TPU kernels in ``ops/pallas/rod_kernel.py``, whose
 narrow, wide and paired bodies differ only in how they pack rods onto the
 TPU's tiles:
@@ -30,25 +31,24 @@ What bounds them on an H100: at N=16 a rod costs about 20 x (15*15*4 +
 15*12) = 21,600 FP32 FMAs against ~456 bytes of device traffic (9 floats
 in, 15 x 7 floats out), about 47 FMAs per byte, far above the card's
 ~10 FP32 FLOP per byte of HBM bandwidth: they are operations bound.  The
-narrow design therefore keeps every operand on chip: one group of P = 8, 16 or
-32 lanes per rod (P the next power of two >= n-1; 2 rods per warp at
-N=16), lane i owns point i's quaternion, its curvature and row i of G in
-registers; each Picard step exchanges the 4-vector ``A(K) s`` through a
-per-rod shared-memory slot (one broadcast 16-byte load per column j), so
-the inner loop is 4 FMAs per shared load and device memory sees only ``qe``
-in and the result out.  On wide grids a row of G no longer fits a lane's
-registers (255 floats at n=256), so the wide kernels run each Picard step
-of a block of R rods as one GEMM on the tensor cores (``csrc/tc_picard.cuh``,
-shared with the refined wide kernels): the points as M, the rods' four
-components as N, G^T and ``A(K/2) s`` in shared memory, the state in the
-MMA accumulators.  The TPU layout (128-sublane rod packing, the bf16x3
-matmul emulation) does not carry over.
+kernels keep every operand on chip and run the products with G on the
+tensor cores (``mma.sync``).  Narrow grids (P = 8, 16 or 32 points, the next
+power of two >= n-1): each Picard step of a warp's 8 or 16 rods is one
+transposed GEMM ``S^T = base^T + T^T G^T`` held entirely in registers, the
+rods' four components as M, the points as N and K; the accumulator of one
+step is the A operand of the next once G^T's rows are permuted to the
+``mma.sync`` k order (:func:`mma_k_order`), so there is no shared memory and
+no barrier.  Wide grids: the points as M, the rods' four components as N,
+G^T and ``A(K/2) s`` in shared memory, the state in the MMA accumulators
+(``csrc/tc_picard.cuh``, shared with the refined wide kernels).  The TPU
+layout (128-sublane rod packing, the bf16x3 matmul emulation) does not
+carry over.
 
 Arithmetic is FP32 for every ``precision`` value the JAX API accepts
 ('float32', 'high', 'default', 'highest'): the TPU's bf16 pass count has
-no Hopper counterpart.  The narrow kernels use FP32 FMAs; the wide ones
-form their products with G as 3xTF32 tensor-core products, as accurate as
-FP32 FMAs here (``tests/test_torch_wide.py``).
+no Hopper counterpart.  The kernels form their products with G as 3xTF32
+tensor-core products, as accurate as FP32 FMAs here
+(``tests/test_torch_wide.py``).
 
 Beside each kernel: a plain PyTorch version with the same math (the wrapper
 takes it for CPU tensors only; a CUDA tensor launches the kernel or raises)
@@ -82,14 +82,14 @@ MAX_POINTS = 512     # the JAX package's WIDE_MAX_PTS
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
-    # qes, B, npts, P, na, ne, g, ptab, gvec, iters, q_out, r_out, stream
+    # qes, B, npts, P, na, ne, gtp, ptab, gvec, iters, q_out, r_out, stream
     "rod_shape_fused_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
-    # qes, B, npts, P, nq, ne, g, ptab, rhs, iters, x_out, stream
+    # qes, B, npts, P, nq, ne, gtp, ptab, rhs, iters, x_out, stream
     "picard_correction_f32": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
-    # qes, q0, r0, B, npts, P, na, ne, g, ptab, gvec, iters, q_out, r_out, stream
+    # qes, q0, r0, B, npts, P, na, ne, gtp, ptab, gvec, iters, q_out, r_out, stream
     "rod_shape_fused_bc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
 }
-# Same arguments, with G^T in place of G.
+# Same arguments, with the wide kernels' G^T planes (gt) in place of gtp.
 _WIDE_SIGNATURES = {
     "rod_shape_fused_wide_f32": _SIGNATURES["rod_shape_fused_f32"],
     "picard_correction_wide_f32": _SIGNATURES["picard_correction_f32"],
@@ -111,7 +111,7 @@ def build_wide_library() -> ctypes.CDLL:
 
 def lanes_per_rod(npts: int) -> int:
     """P, the padded width of a rod: the next power of two >= n-1, at
-    least 8 (narrow kernels: lanes per rod) or 64 (wide kernels: points)."""
+    least 8 (narrow kernels) or 64 (wide kernels)."""
     for p in (8, 16, 32, 64, 128, 256, 512):
         if npts <= p:
             return p
@@ -137,6 +137,9 @@ class KernelConstants:
     ptab: torch.Tensor     # (P, ne) basis table at the unknown points
     gvec: torch.Tensor     # (P,) G (-dn_in): G rhs for q0 = (1,0,0,0)
     gt: torch.Tensor | None   # (3, P, P) G^T, its TF32 hi and lo parts; wide grids only
+    # (3, P, P) G^T with its rows in mma_k_order, its TF32 hi and lo parts;
+    # narrow grids only
+    gtp: torch.Tensor | None
 
 
 def host_operators(cfg: RodConfig):
@@ -153,12 +156,22 @@ def tf32_planes(a: torch.Tensor) -> torch.Tensor:
     """f32 ``a`` stacked with its split into TF32 parts, ``(a, hi, lo)``:
     ``hi = tf32(a)``, ``lo = tf32(a - hi)``, each rounded to nearest with
     ties away from zero as the tensor cores' ``cvt.rna.tf32.f32`` rounds.
-    The wide kernels read a split operand from here instead of splitting it
-    at every product."""
+    The kernels read a constant operand split from here instead of splitting
+    it at every product."""
     def tf32(x):
         return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
     hi = tf32(a)
     return torch.stack([a, hi, tf32(a - hi)])
+
+
+def mma_k_order(p: int) -> np.ndarray:
+    """The point of each k row of the narrow kernels' ``mma.sync`` products:
+    in every 8-deep k-block, rows t and t + 4 (t < 4) stand for points 2t
+    and 2t + 1 of the block, where the previous product's accumulator left
+    them, so that accumulator serves as the next A operand unchanged."""
+    k = np.arange(p)
+    j = k % 8
+    return k - j + 2 * (j % 4) + j // 4
 
 
 def padded(a: np.ndarray, shape, dtype, device) -> torch.Tensor:
@@ -172,13 +185,15 @@ def _constants(cfg: RodConfig, device: torch.device) -> KernelConstants:
     ginv, _, dn_in, table = host_operators(cfg)
     npts = cfg.n - 1
     p = lanes_per_rod(npts)
-    f32 = torch.float32
+    f32, wide = torch.float32, is_wide(npts)
+    gt = np.pad(ginv.T, (0, p - npts))
     return KernelConstants(
         npts=npts, p=p,
         g=padded(ginv, (p, p), f32, device),
         ptab=padded(table, (p, cfg.ne), f32, device),
         gvec=padded(-(ginv @ dn_in), (p,), f32, device),
-        gt=tf32_planes(padded(ginv.T, (p, p), f32, device)) if is_wide(npts) else None,
+        gt=tf32_planes(padded(gt, (p, p), f32, device)) if wide else None,
+        gtp=None if wide else tf32_planes(padded(gt[mma_k_order(p)], (p, p), f32, device)),
     )
 
 
@@ -300,7 +315,7 @@ def rod_shape_fused(qes, cfg: RodConfig = RodConfig(), iters: int = 20,
     if not on_cuda(qes, "rod_shape_fused"):
         return rod_shape_fused_plain(qes, cfg, iters)
     c = constants(cfg, qes.device)
-    q, r = _launch_fused(build_library().rod_shape_fused_f32, c.g, qes, cfg, c, iters,
+    q, r = _launch_fused(build_library().rod_shape_fused_f32, c.gtp, qes, cfg, c, iters,
                          "rod_shape_fused")
     rod_shape_fused.launches += 1
     return q, r
@@ -365,7 +380,7 @@ def rod_shape_fused_bc(qes, q_init, r_init, cfg: RodConfig = RodConfig(),
     if not on_cuda(qes, "rod_shape_fused_bc"):
         return rod_shape_fused_bc_plain(qes, q0, r0, cfg, iters)
     c = constants(cfg, qes.device)
-    q, r = _launch_fused(build_library().rod_shape_fused_bc_f32, c.g, qes, cfg, c, iters,
+    q, r = _launch_fused(build_library().rod_shape_fused_bc_f32, c.gtp, qes, cfg, c, iters,
                          "rod_shape_fused_bc", (q0, r0))
     rod_shape_fused_bc.launches += 1
     return q, r
@@ -429,7 +444,7 @@ def picard_correction_fused(qes, rhs, cfg: RodConfig = RodConfig(),
     if not on_cuda(qes, "picard_correction_fused"):
         return picard_correction_plain(qes, rhs, cfg, iters)
     c = constants(cfg, qes.device)
-    x = _launch_correction(build_library().picard_correction_f32, c.g, qes, rhs, cfg, c,
+    x = _launch_correction(build_library().picard_correction_f32, c.gtp, qes, rhs, cfg, c,
                            iters, "picard_correction_fused")
     picard_correction_fused.launches += 1
     return x

@@ -62,6 +62,39 @@ def test_k1_k2_kernels_match_plain(cuda, n, na):
         before[0] + 1, before[1] + 1)
 
 
+NARROW = [(n, na, 1001, 20) for n in (8, 9, 16, 17, 32, 33) for na in (3, 6)]
+
+
+@pytest.mark.parametrize("n,na,b,iters", NARROW + [(16, 3, 1, 20), (17, 6, 1, 0),
+                                                   (33, 3, 1001, 0), (16, 6, 1001, 0)])
+def test_narrow_f32_kernels_match_plain(cuda, n, na, b, iters):
+    """K1, K4 and K2 narrow (the tensor-core kernels of csrc/rod_kernel.cu)
+    at n-1 in {7, 8, 15, 16, 31, 32}: the edges of each padded width P = 8,
+    16, 32; ragged batches of 1001 and 1 rods; iters = 0 (K1/K4: the base
+    and one position product; K2: x = G rhs alone); K2 also with a
+    residual-scale rhs (1e-7), to which its gate scales, as K2 is linear."""
+    cfg = rod.RodConfig(n=n, na=na)
+    qe64 = 0.8 * np.random.default_rng(400 + n).standard_normal((b, 3 * na))
+    hi = torch.tensor(qe64, dtype=torch.float32, device=cuda)
+    (q0, _), (r0, _) = _inits(cuda, b, 500 + n)
+    rhs = torch.randn((b, n - 1, 4), device=cuda, generator=torch.Generator(cuda).manual_seed(n))
+    kernels = (rk.rod_shape_fused, rk.rod_shape_fused_bc, rk.picard_correction_fused)
+    before = [k.launches for k in kernels]
+    q, r = rk.rod_shape_fused(hi, cfg, iters=iters)
+    qp, rp = rk.rod_shape_fused_plain(hi, cfg, iters=iters)
+    torch.testing.assert_close(q, qp, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(r, rp, atol=F32_TOL, rtol=0)
+    q, r = rk.rod_shape_fused_bc(hi, q0, r0, cfg, iters=iters)
+    qp, rp = rk.rod_shape_fused_bc_plain(hi, q0, r0, cfg, iters=iters)
+    torch.testing.assert_close(q, qp, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(r, rp, atol=F32_TOL, rtol=0)
+    for scale in (1.0, 1e-7):
+        x = rk.picard_correction_fused(hi, scale * rhs, cfg, iters=iters)
+        torch.testing.assert_close(x, rk.picard_correction_plain(hi, scale * rhs, cfg, iters=iters),
+                                   atol=F32_TOL * scale, rtol=0)
+    assert [k.launches for k in kernels] == [before[0] + 1, before[1] + 1, before[2] + 2]
+
+
 @pytest.mark.parametrize("n,na", [(8, 3), (16, 3), (16, 6), (33, 6)])
 def test_k3_kernel_matches_plain(cuda, n, na):
     cfg = rod.RodConfig(n=n, na=na)

@@ -176,3 +176,24 @@ def test_k4_plain_matches_jax_picard_general_inits():
             assert torch.equal(a, b)
     with pytest.raises(ValueError, match="q_init"):
         rk.rod_shape_fused_bc(torch.zeros((4, 9)), torch.zeros((3, 4)), torch.zeros((4, 3)))
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 33])
+def test_narrow_operator_planes(n):
+    """The narrow kernels' G^T planes: rows permuted to the mma.sync k
+    order (undone, the padded G^T exactly), split into TF32 hi + lo within
+    2^-22 relative of it, and zero in every padded row and column."""
+    c = rk.constants(rod.RodConfig(n=n), "cpu")
+    npts, p = n - 1, c.p
+    assert c.gtp.shape == (3, p, p) and c.gt is None
+    order = rk.mma_k_order(p)
+    assert sorted(order) == list(range(p))
+    gt = torch.zeros((p, p))
+    gt[:npts, :npts] = c.g[:npts, :npts].T
+    torch.testing.assert_close(c.gtp[0][np.argsort(order)], gt, atol=0, rtol=0)
+    assert not (c.gtp[1:].view(torch.int32) & 0x1FFF).any()   # TF32: 10 mantissa bits
+    a, hi, lo = c.gtp.double()
+    assert ((hi + lo - a).abs() <= 2.0**-22 * a.abs()).all()
+    padded = torch.tensor(order >= npts)
+    for plane in c.gtp:
+        assert not plane[padded].any() and not plane[:, npts:].any()

@@ -159,12 +159,19 @@ def _tf32(x):
     return torch.where(torch.isfinite(x), rounded, x)
 
 
-def _tf32_matmul(passes):
-    """``torch.matmul`` with its f32 products formed as the wide refined
-    kernels form them on the tensor cores: ``a_lo b_hi + a_hi b_lo +
-    a_hi b_hi`` with ``x_hi = tf32(x)``, ``x_lo = tf32(x - x_hi)``
-    (``passes=3``), or ``a_hi b_hi`` alone (``passes=1``).  FP64 products
-    stay FP64, as in the kernels."""
+def _trunc_tf32(x):
+    """f32 ``x`` as the tensor cores read an f32 operand: its low 13
+    mantissa bits dropped.  The narrow kernels leave T's lo part so."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(passes, b_lo=_tf32):
+    """``torch.matmul`` with its f32 products formed as the kernels form
+    them on the tensor cores: ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with
+    ``x_hi = tf32(x)``, ``x_lo = tf32(x - x_hi)`` (``passes=3``), or
+    ``a_hi b_hi`` alone (``passes=1``); ``b_lo`` rounds the second
+    operand's lo part (``_trunc_tf32`` for the narrow kernels).  FP64
+    products stay FP64, as in the kernels."""
     matmul = torch.matmul
 
     def product(a, b):
@@ -173,8 +180,8 @@ def _tf32_matmul(passes):
         a_hi, b_hi = _tf32(a), _tf32(b)
         if passes == 1:
             return matmul(a_hi, b_hi)
-        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-        return matmul(a_lo, b_hi) + matmul(a_hi, b_lo) + matmul(a_hi, b_hi)
+        a_lo, b_lo_part = _tf32(a - a_hi), b_lo(b - b_hi)
+        return matmul(a_lo, b_hi) + matmul(a_hi, b_lo_part) + matmul(a_hi, b_hi)
     return product
 
 
@@ -204,15 +211,17 @@ def test_refined_wide_3xtf32_products_meet_the_gate(n, monkeypatch):
     assert errs[3] < GATE < errs[1]
 
 
-@pytest.mark.parametrize("what,n", [("K1", 64), ("K1", 256), ("staged", 64)])
+@pytest.mark.parametrize("what,n", [("K1", 64), ("K1", 256), ("staged", 64), ("K1", 16),
+                                    ("K1", 33), ("staged", 16)])
 def test_wide_f32_3xtf32_products_meet_the_gates(what, n, monkeypatch):
-    """K1/K4 wide and K2 wide form their f32 products with G (G T in the
-    Picard loop, G rhs and G b) as three TF32 products.  The plain versions
-    with those products so rounded stay within 2x of their FP32 error
-    against the f64 oracle and inside the 5e-5 gate (K1), and inside the
-    1e-8 gate on the staged refined path, whose K2 solves carry it (its
-    residual and quadrature are FP64, which the rounding leaves alone).
-    One TF32 pass is at least 20x worse on K1."""
+    """K1/K4 and K2, wide and narrow, form their f32 products with G (G T in
+    the Picard loop, G rhs and G b) as three TF32 products; the narrow ones
+    leave T's lo part truncated.  The plain versions with those products so
+    rounded stay within 2x of their FP32 error against the f64 oracle and
+    inside the 5e-5 gate (K1), and inside the 1e-8 gate on the staged
+    refined path, whose K2 solves carry it (its residual and quadrature are
+    FP64, which the rounding leaves alone).  One TF32 pass is at least 20x
+    worse on K1."""
     rng = np.random.default_rng(n)
     qe64 = 0.5 * rng.standard_normal((2, 9))
     qe64[0] = oracle.demo_qe()
@@ -222,7 +231,8 @@ def test_wide_f32_3xtf32_products_meet_the_gates(what, n, monkeypatch):
     def error(passes):
         with monkeypatch.context() as m:
             if passes:
-                m.setattr(torch, "matmul", _tf32_matmul(passes))
+                m.setattr(torch, "matmul",
+                          _tf32_matmul(passes, _tf32 if rk.is_wide(n - 1) else _trunc_tf32))
             if what == "K1":
                 q, r = rk.rod_shape_fused_plain(torch.tensor(qe64, dtype=torch.float32), cfg, 24)
             else:
