@@ -7,8 +7,9 @@ which raises on failure (exit code != 0, no result lines):
 2. build the CUDA kernels from ``csrc/``, one nvcc per source, all at once:
    K1-K5 narrow (n-1 <= 32) and K1-K5 wide (32 < n-1 <= 512); registers and
    spills per kernel, and whether each library's SASS holds tensor-core
-   (HMMA) instructions (all but the refined narrow one must); a probe of how
-   ``mma.sync`` rounds its FP32 tile sum and reads an f32 operand;
+   instructions: HMMA in every one, and DMMA (FP64) in the refined narrow
+   one, whose FP64 products run there; a probe of how ``mma.sync`` rounds
+   its FP32 tile sum and reads an f32 operand;
 3. each kernel against its plain PyTorch version on the card: narrow at
    N in {8, 16, 32, 33} and a ragged batch, wide at n-1 in
    {33, 63, 64, 65, 128, 255, 512} and a ragged batch, na in {3, 6}; K4 and
@@ -94,45 +95,61 @@ GOLDEN_TOL = 1e-6
 F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 67e12, 3.35e12
 TF32X3_PEAK = 495e12 / 3
 
+# How each kernel runs on the card, printed beside its timing.
+NARROW_TC = "3xTF32 mma.sync Picard steps, the state in registers (narrow_tc.cuh)"
+WIDE_TC = "3xTF32 mma.sync Picard steps, G^T and T in shared memory (tc_picard.cuh)"
+REFINED_DMMA = NARROW_TC + "; FP64 residual and position on DMMA (mma.sync.m8n8k4.f64)"
+REFINED_FMA = WIDE_TC + "; FP64 residual and position on the FMA units"
+
 KERNELS = {
     "K1": dict(name="K1 rod_shape_fused", wrapper=rk.rod_shape_fused,
                source=f"{PKG}/csrc/rod_kernel.cu",
-               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:395"),
+               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:395",
+               design=NARROW_TC),
     "K2": dict(name="K2 picard_correction_fused", wrapper=rk.picard_correction_fused,
                source=f"{PKG}/csrc/rod_kernel.cu",
-               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:447"),
+               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:447",
+               design=NARROW_TC),
     "K3": dict(name="K3 rod_shape_refined_kernel", wrapper=rfk.rod_shape_refined_kernel,
                source=f"{PKG}/csrc/refined_kernel.cu",
-               replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:890"),
+               replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:890",
+               design=REFINED_DMMA),
     "K1w": dict(name="K1 wide rod_shape_fused_wide", wrapper=rk.rod_shape_fused_wide,
                 source=f"{PKG}/csrc/rod_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:738; "
-                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997"),
+                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997",
+                design=WIDE_TC),
     "K2w": dict(name="K2 wide picard_correction_fused_wide",
                 wrapper=rk.picard_correction_fused_wide,
                 source=f"{PKG}/csrc/rod_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:738; "
-                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997"),
+                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997",
+                design=WIDE_TC),
     "K3w": dict(name="K3 wide rod_shape_refined_kernel_wide",
                 wrapper=rfk.rod_shape_refined_kernel_wide,
                 source=f"{PKG}/csrc/refined_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:540; "
-                         f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195"),
+                         f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195",
+                design=REFINED_FMA),
     "K4": dict(name="K4 rod_shape_fused_bc", wrapper=rk.rod_shape_fused_bc,
                source=f"{PKG}/csrc/rod_kernel.cu",
-               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:508"),
+               replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:508",
+               design=NARROW_TC),
     "K4w": dict(name="K4 wide rod_shape_fused_bc_wide", wrapper=rk.rod_shape_fused_bc_wide,
                 source=f"{PKG}/csrc/rod_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/rod_kernel.py:738; "
-                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997"),
+                         f"{JAX_PKG}/ops/pallas/rod_kernel.py:997",
+                design=WIDE_TC),
     "K5": dict(name="K5 rod_shape_refined_kernel_bc", wrapper=rfk.rod_shape_refined_kernel_bc,
                source=f"{PKG}/csrc/refined_kernel.cu",
-               replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:792"),
+               replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:792",
+               design=REFINED_DMMA),
     "K5w": dict(name="K5 wide rod_shape_refined_kernel_bc_wide",
                 wrapper=rfk.rod_shape_refined_kernel_bc_wide,
                 source=f"{PKG}/csrc/refined_wide_kernel.cu",
                 replaces=f"{JAX_PKG}/ops/pallas/refined_kernel.py:635; "
-                         f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195"),
+                         f"{JAX_PKG}/ops/pallas/refined_kernel.py:1195",
+                design=REFINED_FMA),
 }
 
 
@@ -170,12 +187,15 @@ def phase_build() -> None:
     for lib in libs:
         sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
                               check=True, timeout=300).stdout
-        hmma = sass.count("HMMA")
+        hmma, dmma = sass.count("HMMA"), sass.count("DMMA")
         print(f"built {lib._name.split('/')[-1]}: nvcc {lib.build_seconds:.1f} s; tensor-core "
-              f"(HMMA) instructions in its SASS: {'yes' if hmma else 'no'} ({hmma})")
-        if "refined_kernel-" not in lib._name and not hmma:
+              f"instructions in its SASS: HMMA {hmma}, DMMA {dmma}")
+        if not hmma:
             raise AssertionError(f"{lib._name}: its kernels run on the tensor cores but its "
                                  "SASS holds no HMMA instruction")
+        if "refined_kernel-" in lib._name and not dmma:
+            raise AssertionError(f"{lib._name}: K3/K5 narrow form their FP64 products on the "
+                                 "FP64 tensor cores but the SASS holds no DMMA instruction")
     print(f"all built in {time.perf_counter() - t0:.1f} s (parallel)")
     rows = []   # (library, mangled kernel, ptxas line)
     for log in sorted(build.BUILD_DIR.glob("*.nvcc.log")):
@@ -827,6 +847,7 @@ def phase_timing(dev: torch.device, card: str, errors: dict) -> dict:
         else:
             record(errors, key, max_abs(out, ref), F32_TOL, f"{key} {shape} B={batch}")
         del out, ref
+        print(f"  {key}: {KERNELS[key]['design']}")
         k, p = timed(card, f"{key} {shape} B={batch}", kernel, plain, batch)
         print(f"  {key}: kernel {back_to_back_ms(kernel):.4f} ms a call back to back [{card}]")
         lib_ms = None

@@ -86,9 +86,11 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer for a ``c_void_p`` argument (``None``: NULL),
+    as a plain int: ctypes converts it faster than a ``c_void_p`` object."""
+    return None if t is None else t.data_ptr()
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -30,22 +30,27 @@ and the kernel NaN-poisoned states outside the int8 windows (``|s| >= 3.96``,
 ``|b| >= 7.92``).  With native FP64 neither the planes nor those window
 tests exist here; the rho sentinel stays.
 
-What bounds it on an H100: the two f32 Picard loops are K1's FP32-FMA work
-(~2 x 21,600 FMAs per rod at N=16); the FP64 residual and position add
-15*15*4 + 15*15*3 = 1,575 FP64 FMAs per rod at half the FP32 rate, and the
-traffic is ~ 72 bytes in and 15 x 14 x 4 = 840 bytes out per rod; it is
-FMA bound.  Same design as K1 (one P-lane group per rod, a lane per point,
-G's f32 row in registers), plus ``Dn_NN`` and ``G`` in FP64 in shared
-memory, stored transposed so that a column read is one conflict-free
-row of doubles.  K3 wide and K5 wide run the f32 products on the tensor
-cores (``csrc/tc_picard.cuh``): 3xTF32 ``mma.sync`` tiles, G^T and the
-panel in shared memory, each operand split as ``hi = tf32(x)``,
-``lo = tf32(x - hi)`` and the product summed as ``G_lo T_hi + G_hi T_lo +
-G_hi T_hi`` (one TF32 pass would miss the 1e-8 gate), each 16-deep step in
-a fresh tile added to the state in FP32 (the tensor cores' own FP32 sum
-truncates).  They read ``Dn_NN^T`` and ``G^T`` in FP64 from device memory
-for the two FP64 products, and take the rho sentinel's max with a
-shared-memory atomic.
+What bounds them on an H100: at N=16 a rod costs two f32 Picard loops and
+``G res`` (41 products with G of 15*15*4 multiply-adds at 20/20 iterations,
+and 12 per point and step in ``A(K/2)``), ~1,600 FP64 multiply-adds in the
+residual's ``Dn_NN s`` and the position's ``G b``, against ~72 bytes in and
+15 x 14 x 4 = 840 bytes out: operations bound.  The narrow kernels run on
+the narrow tensor-core core of K1/K2/K4 (``csrc/narrow_tc.cuh``): the base
+solve is K1's loop and the correction K2's, each step of a warp's 8 or 16
+rods one transposed 3xTF32 ``mma.sync`` product whose state stays in the
+registers (G^T's rows in :func:`rod_kernel.mma_k_order`, the same
+``KernelConstants.gtp`` planes).  Their FP64 products run on the FP64 tensor
+cores (DMMA, ``mma.sync.m8n8k4.f64``) in the same layout, so that a thread's
+own state values are its A fragments and its C fragments its own points:
+``Dn_NN`` and ``G`` are passed in :func:`dmma_order`.  K3 wide and K5 wide
+run the f32 products on the wide core (``csrc/tc_picard.cuh``): 3xTF32
+``mma.sync`` tiles, G^T and the panel in shared memory, each operand split
+as ``hi = tf32(x)``, ``lo = tf32(x - hi)`` and the product summed as
+``G_lo T_hi + G_hi T_lo + G_hi T_hi`` (one TF32 pass would miss the 1e-8
+gate), each 16-deep step in a fresh tile added to the state in FP32 (the
+tensor cores' own FP32 sum truncates).  They read ``Dn_NN^T`` and ``G^T`` in
+FP64 from device memory for the two FP64 products, and take the rho
+sentinel's max with a shared-memory atomic.
 
 Beside each kernel: its plain PyTorch version (CPU tensors only in the
 wrapper; a CUDA tensor launches the kernel or raises) and a launch count
@@ -59,6 +64,7 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import basis as basis_ops
@@ -72,21 +78,22 @@ from . import rod_kernel as rk
 __all__ = ["rod_shape_refined_kernel", "rod_shape_refined_kernel_wide",
            "rod_shape_refined_plain", "rod_shape_refined_kernel_bc",
            "rod_shape_refined_kernel_bc_wide", "rod_shape_refined_bc_plain",
-           "build_library", "build_wide_library"]
+           "dmma_order", "build_library", "build_wide_library"]
 
 _I, _P, _D = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 _SIGNATURES = {
-    # qes_hi, qes_lo, B, npts, P, na, ne, g32, gvec32, g64, dn64, ptab64,
+    # qes_hi, qes_lo, B, npts, P, na, ne, gtp, gvec32, g64, dn64, ptab64,
     # din64, iters, corr_iters, rho2_limit, q_hi, q_lo, r_hi, r_lo, stream
     "rod_shape_refined": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _I, _I, _D, _P, _P, _P, _P, _P],
-    # qes_hi, qes_lo, q0_hi, q0_lo, r0_hi, r0_lo, B, npts, P, na, ne, g32,
+    # qes_hi, qes_lo, q0_hi, q0_lo, r0_hi, r0_lo, B, npts, P, na, ne, gtp,
     # gvec32, g64, dn64, ptab64, din64, gvec64, iters, corr_iters,
     # rho2_limit, q_hi, q_lo, r_hi, r_lo, stream
     "rod_shape_refined_bc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P],
 }
-# Same arguments, with the transposed operators G^T (f32, f64) and Dn_NN^T.
+# Same arguments, with the transposed operators G^T (f32, f64) and Dn_NN^T
+# in place of gtp, g64 and dn64.
 _WIDE_SIGNATURES = {"rod_shape_refined_wide": _SIGNATURES["rod_shape_refined"],
                     "rod_shape_refined_bc_wide": _SIGNATURES["rod_shape_refined_bc"]}
 
@@ -103,6 +110,17 @@ def build_wide_library() -> ctypes.CDLL:
     return build.load_library("refined_wide_kernel", _WIDE_SIGNATURES)
 
 
+def dmma_order(a: np.ndarray) -> np.ndarray:
+    """A ``(P, P)`` operator in the order the narrow refined kernels read it
+    as the B operand of their FP64 tensor-core products: entry
+    ``((n * P/8 + k) * 32 + 4 g + t) * 2 + e`` is ``a[8n + g, 8k + 2t + e]``,
+    so that thread ``(g, t)`` of a warp finds its two values of each
+    (k-block, n-tile) side by side and the warp's 16-byte loads are
+    consecutive."""
+    nb = a.shape[0] // 8
+    return a.reshape(nb, 8, nb, 4, 2).transpose(0, 2, 1, 3, 4).reshape(a.shape)
+
+
 @dataclass(frozen=True, eq=False)
 class RefinedConstants:
     """K1's f32 operators plus the f64 ones, zero-padded to ``P`` points."""
@@ -113,8 +131,10 @@ class RefinedConstants:
     ptab64: torch.Tensor   # (P, ne) basis table
     din64: torch.Tensor    # (P,) dn_in
     gvec64: torch.Tensor   # (P,) -G dn_in: G rhs for q0 = (1,0,0,0) (K5's r0 term)
-    g64t: torch.Tensor | None    # (P, P) G^T, wide grids only
-    dn64t: torch.Tensor | None   # (P, P) Dn_NN^T, wide grids only
+    # (P, P) the FP64 operators as the kernel reads them: G^T and Dn_NN^T on
+    # wide grids, G and Dn_NN in dmma_order on narrow ones
+    g64k: torch.Tensor
+    dn64k: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,7 +142,13 @@ def _constants(cfg: RodConfig, device: torch.device) -> RefinedConstants:
     ginv, dn_nn, dn_in, table = rk.host_operators(cfg)
     c32 = rk.constants(cfg, device)
     p, f64 = c32.p, torch.float64
-    wide = rk.is_wide(c32.npts)
+    npts = c32.npts
+
+    def kernel_layout(a):
+        if rk.is_wide(npts):
+            return rk.padded(a.T, (p, p), f64, device)
+        return torch.tensor(dmma_order(np.pad(a, (0, p - npts))), dtype=f64, device=device)
+
     return RefinedConstants(
         f32=c32,
         g64=rk.padded(ginv, (p, p), f64, device),
@@ -130,8 +156,8 @@ def _constants(cfg: RodConfig, device: torch.device) -> RefinedConstants:
         ptab64=rk.padded(table, (p, cfg.ne), f64, device),
         din64=rk.padded(dn_in, (p,), f64, device),
         gvec64=rk.padded(-(ginv @ dn_in), (p,), f64, device),
-        g64t=rk.padded(ginv.T, (p, p), f64, device) if wide else None,
-        dn64t=rk.padded(dn_nn.T, (p, p), f64, device) if wide else None,
+        g64k=kernel_layout(ginv),
+        dn64k=kernel_layout(dn_nn),
     )
 
 
@@ -231,17 +257,14 @@ def _launch(entry, qes, qes_lo, cfg: RodConfig, iters: int, corr_iters: int,
     b, n1 = qes.shape[0], c.f32.npts
     q = torch.empty((2, b, n1, 4), dtype=torch.float32, device=qes.device)
     r = torch.empty((2, b, n1, 3), dtype=torch.float32, device=qes.device)
-    if rk.is_wide(n1):   # the wide kernel reads the operators' columns
-        g32, g64, dn64 = c.f32.gt, c.g64t, c.dn64t
-    else:
-        g32, g64, dn64 = c.f32.g, c.g64, c.dn64
+    g32 = c.f32.gt if rk.is_wide(n1) else c.f32.gtp
     p = build.ptr
     states = () if bc is None else tuple(map(p, bc))
     gvec64 = () if bc is None else (p(c.gvec64),)
     with torch.cuda.device(qes.device):
         err = entry(
             p(qes), p(qes_lo), *states, b, n1, c.f32.p, cfg.na, cfg.ne, p(g32),
-            p(c.f32.gvec), p(g64), p(dn64), p(c.ptab64), p(c.din64), *gvec64,
+            p(c.f32.gvec), p(c.g64k), p(c.dn64k), p(c.ptab64), p(c.din64), *gvec64,
             int(iters), int(corr_iters), _rho2_limit(check_rho, cfg),
             p(q[0]), p(q[1]), p(r[0]), p(r[1]), build.stream_of(qes))
     build.check_launch(err, what)

@@ -24,6 +24,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     collocation as coll,
     doubledouble as dd,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 8
 JCFG = jrod.RodConfig()

@@ -112,6 +112,57 @@ def test_k3_kernel_matches_plain(cuda, n, na):
         torch.testing.assert_close(ja, jb, atol=K3_TOL, rtol=0, equal_nan=True)
 
 
+def _joined_close(outs, plain, tol, bad):
+    """The f64 joins of a refined kernel's outputs against the plain
+    version's: the same NaN pattern, NaN exactly in rod ``bad`` (if any),
+    and within ``tol`` elsewhere."""
+    for a, p in ((outs[:2], plain[:2]), (outs[2:], plain[2:])):
+        ja, jp = dd.join_f64(*a), dd.join_f64(*p)
+        nan = torch.isnan(ja).flatten(1).all(1)
+        assert torch.equal(torch.isnan(ja), torch.isnan(jp))
+        assert nan.tolist() == [i == bad for i in range(ja.shape[0])]
+        torch.testing.assert_close(ja, jp, atol=tol, rtol=0, equal_nan=True)
+
+
+REFINED_NARROW = ([(n, na, 1001, 20, 20) for n in (9, 16, 32, 33) for na in (3, 6)]
+                  + [(16, 3, 1, 20, 20), (16, 6, 1001, 20, 0), (17, 3, 1001, 0, 0),
+                     (33, 6, 1001, 0, 0)])
+
+
+@pytest.mark.parametrize("n,na,b,iters,corr_iters", REFINED_NARROW)
+def test_refined_narrow_kernels_match_plain(cuda, n, na, b, iters, corr_iters):
+    """K3 and K5 narrow (csrc/refined_kernel.cu: 3xTF32 Picard loops in the
+    mma.sync registers, FP64 products on DMMA) at n-1 in {8, 15, 31, 32},
+    the edges of P = 8, 16, 32; a ragged batch of 1001 rods (strains
+    0.5 N(0,1), all inside the rho limit) with rod 5 above it, NaN alone in
+    its warp of healthy rods; one rod; with the low words of qe, q0 and r0
+    and without them (None): the joined outputs within 1e-9 of the plain
+    versions.  With either loop cut to zero steps the correction does not
+    converge, so the result keeps f32 rounding to first order (iters = 0:
+    an O(1) correction formed in f32; corr_iters = 0: one step G res, which
+    leaves the base solve's rounding scaled by the loop's contraction) in
+    the kernel and in the plain version alike: the f32 gate holds there."""
+    cfg = rod.RodConfig(n=n, na=na)
+    qe64 = 0.5 * np.random.default_rng(700 + n).standard_normal((b, 3 * na))
+    bad = 5 if b > 5 else None
+    if bad is not None:
+        qe64[bad] = 0.0
+        qe64[bad, 3] = 16.0                  # K_1 = 16: rho = 8
+    hi, lo = dd.split_f64(torch.tensor(qe64, device=cuda))
+    (q0h, q0l), (r0h, r0l) = _inits(cuda, b, 800 + n)
+    tol = K3_TOL if iters and corr_iters else F32_TOL
+    kernels = (rfk.rod_shape_refined_kernel, rfk.rod_shape_refined_kernel_bc)
+    before = [k.launches for k in kernels]
+    for lows in ((lo, q0l, r0l), (None, None, None)):
+        _joined_close(rfk.rod_shape_refined_kernel(hi, lows[0], cfg, iters, corr_iters),
+                      rfk.rod_shape_refined_plain(hi, lows[0], cfg, iters, corr_iters), tol, bad)
+        _joined_close(rfk.rod_shape_refined_kernel_bc(hi, q0h, r0h, *lows, cfg=cfg, iters=iters,
+                                                      corr_iters=corr_iters),
+                      rfk.rod_shape_refined_bc_plain(hi, q0h, r0h, *lows, cfg=cfg, iters=iters,
+                                                     corr_iters=corr_iters), tol, bad)
+    assert [k.launches for k in kernels] == [c + 2 for c in before]
+
+
 @pytest.mark.parametrize("n,na", [(34, 3), (65, 6), (66, 3), (130, 3), (256, 6), (513, 3)])
 def test_wide_kernels_match_plain(cuda, n, na):
     """K1, K2 and K3 wide at the edges of the wide range: n-1 = 33, 64,

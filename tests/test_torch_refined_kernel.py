@@ -26,6 +26,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
     refined_kernel as rfk,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 16
 EXACT, DEMO, RHO5, BAD = range(6), 6, 7, (8, 9)
@@ -170,3 +171,29 @@ def test_k5_rho_limit_is_per_segment():
                                            iters=30, corr_iters=30)
     assert all(torch.isnan(o).all() for o in long_rod)
     assert all(torch.isfinite(o).all() for o in half)
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 33, 64])
+def test_fp64_operators_in_kernel_layout(n):
+    """The FP64 operators as the refined kernels read them.  Narrow grids:
+    G and Dn_NN zero-padded to P and permuted to dmma_order, where thread
+    (g, t) of a warp finds a[8 nb + g, 8 kb + 2t + e] at
+    ((nb * P/8 + kb) * 32 + 4g + t) * 2 + e; undone, the padded operators
+    exactly.  Wide grids: G^T and Dn_NN^T."""
+    c = rfk.constants(rod.RodConfig(n=n), "cpu")
+    npts, p = n - 1, c.f32.p
+    for kernel, plain in ((c.g64k, c.g64), (c.dn64k, c.dn64)):
+        assert kernel.shape == (p, p) and kernel.dtype == torch.float64
+        assert not plain[npts:].any() and not plain[:, npts:].any()
+        if p > 32:
+            torch.testing.assert_close(kernel, plain.T, atol=0, rtol=0)
+            continue
+        flat, nb = kernel.reshape(-1), p // 8
+        for lane in (0, 5, 31):
+            g, t = divmod(lane, 4)
+            for n_tile, kb, e in ((0, 0, 0), (nb - 1, 0, 1), (0, nb - 1, 1), (nb - 1, nb - 1, 0)):
+                at = ((n_tile * nb + kb) * 32 + lane) * 2 + e
+                assert flat[at] == plain[8 * n_tile + g, 8 * kb + 2 * t + e]
+        order = torch.tensor(rfk.dmma_order(np.arange(p * p).reshape(p, p))).reshape(-1)
+        assert sorted(order.tolist()) == list(range(p * p))
+        torch.testing.assert_close(flat[torch.argsort(order)].reshape(p, p), plain, atol=0, rtol=0)

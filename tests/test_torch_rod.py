@@ -27,6 +27,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     refined_kernel as rfk,
     rod_kernel as rk,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 8
 GATE = 1e-8        # refined relative L-inf gate (tests/test_refined_kernel.py:77)

@@ -24,6 +24,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
     rod_kernel as rk,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 64
 F32_TOL = 2e-6     # 'highest' gate, tests/test_pallas_kernel.py:26

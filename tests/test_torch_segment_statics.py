@@ -31,6 +31,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 STIFF = ((1.0, 1.0, 1.3), (1.0, 0.7, 1.0))      # tests/test_segment_statics.py:127-129
 JCFGS = {   # name: JAX config of the residual parity cases

@@ -30,6 +30,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 4
 F32_TOL = 2e-4     # fused chain vs picard chain, tests/test_segments.py:196-199

@@ -33,6 +33,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     convert,
     diagnostics,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 NS = [8, 16, 24, 33]
 CONST_TOL = 1e-14   # identical f64 host arithmetic on both sides

@@ -26,6 +26,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 QE_TOL = 2e-5      # tests/test_cosserat_statics.py:207,224
 NEWTON = dict(tol=1e-5, max_iter=12, iters=16)

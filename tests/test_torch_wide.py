@@ -8,6 +8,8 @@ plain versions on the card by ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     refined_kernel as rfk,
     rod_kernel as rk,
 )
+from torch_threads import one_cpu_thread  # noqa: F401
 
 B = 4
 F32_TOL = 5e-5     # tests/test_pallas_kernel.py:137-140,177
@@ -86,18 +89,26 @@ def _rel(x, y):
     return np.abs(np.asarray(x) - y).max() / np.abs(y).max()
 
 
+@functools.lru_cache(maxsize=None)
+def _demo_pair(n):
+    """The oracle tests' inputs at n and their f64 oracle solutions, built
+    once per module: two strains 0.5 N(0,1) from default_rng(n), rod 0 the
+    demo strain.  Read only."""
+    rng = np.random.default_rng(n)
+    qe64 = 0.5 * rng.standard_normal((2, 9))
+    qe64[0] = oracle.demo_qe()
+    return qe64, [oracle.integrate_position(qe, n=n) for qe in qe64]
+
+
 @pytest.mark.parametrize("n,refine_steps", [(64, 1), (64, 2), (256, 1)])
 def test_refined_wide_matches_oracle(n, refine_steps):
     """The single kernel (K3 wide) and the staged path (K2 wide) within the
     1e-8 gate of the f64 oracle; rod 0 is the demo strain as an f64 pair."""
-    rng = np.random.default_rng(n)
-    qe64 = 0.5 * rng.standard_normal((2, 9))
-    qe64[0] = oracle.demo_qe()
+    qe64, refs = _demo_pair(n)
     sol = rod.rod_shape_refined_fused(rod.split_strain(torch.tensor(qe64)),
                                       cfg=rod.RodConfig(n=n), refine_steps=refine_steps,
                                       iters=28, corr_iters=28)
-    for i in range(2):
-        q_ref, r_ref = oracle.integrate_position(qe64[i], n=n)
+    for i, (q_ref, r_ref) in enumerate(refs):
         assert _rel(sol.quaternions_f64()[i].numpy().T.reshape(-1), q_ref) < GATE
         assert _rel(sol.positions_f64()[i].numpy(), r_ref) < GATE
 
@@ -193,9 +204,7 @@ def test_refined_wide_3xtf32_products_meet_the_gate(n, monkeypatch):
     not, which is why the kernels take three."""
     x = torch.tensor([1 + 2**-11, -(1 + 3 * 2**-11), 1 + 2**-12], dtype=torch.float32)
     assert _tf32(x).tolist() == [1 + 2**-10, -(1 + 2**-9), 1.0]   # ties away from zero
-    rng = np.random.default_rng(n)
-    qe64 = 0.5 * rng.standard_normal((2, 9))
-    qe64[0] = oracle.demo_qe()
+    qe64, refs = _demo_pair(n)
     hi, lo = rod.split_strain(torch.tensor(qe64))
     errs = {}
     for passes in (3, 1):
@@ -204,10 +213,41 @@ def test_refined_wide_3xtf32_products_meet_the_gate(n, monkeypatch):
             out = rfk.rod_shape_refined_plain(hi, lo, rod.RodConfig(n=n), 28, 28)
         q, r = dd.join_f64(out[0], out[1]), dd.join_f64(out[2], out[3])
         errs[passes] = 0.0
-        for i in range(2):
-            q_ref, r_ref = oracle.integrate_position(qe64[i], n=n)
+        for i, (q_ref, r_ref) in enumerate(refs):
             errs[passes] = max(errs[passes], _rel(q[i].numpy().T.reshape(-1), q_ref),
                                _rel(r[i].numpy(), r_ref))
+    assert errs[3] < GATE < errs[1]
+
+
+@pytest.mark.parametrize("n,na", [(16, 3), (32, 3), (16, 6)])
+def test_refined_narrow_3xtf32_products_meet_the_gate(n, na, monkeypatch):
+    """K3 narrow forms the products with G of both its f32 Picard loops and
+    of G res as three TF32 products with T's lo part truncated; its FP64
+    products (Dn_NN s, G b) are FP64.  The plain refined arithmetic with its
+    f32 products so rounded stays within the 1e-8 gate of the f64 reference
+    (the oracle; for na = 6, whose Reissner tangent the oracle lacks, the
+    f64 dense solve), at n-1 = 15 and at n-1 = 31 (P = 32 with a padded
+    point); one TF32 pass does not."""
+    rng = np.random.default_rng(n + na)
+    qe64 = 0.5 * rng.standard_normal((2, 3 * na))
+    if na == 3:
+        qe64[0] = oracle.demo_qe()
+    cfg = rod.RodConfig(n=n, na=na)
+    if na == 3:
+        refs = [oracle.integrate_position(qe, n=n) for qe in qe64]
+    else:
+        dense = rod.rod_shape(torch.tensor(qe64), cfg=cfg, method="dense")
+        refs = [(dense.quaternions[i].numpy().T.reshape(-1), dense.positions[i].numpy())
+                for i in range(2)]
+    hi, lo = rod.split_strain(torch.tensor(qe64))
+    errs = {}
+    for passes in (3, 1):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "matmul", _tf32_matmul(passes, _trunc_tf32))
+            out = rfk.rod_shape_refined_plain(hi, lo, cfg, 20, 20)
+        q, r = dd.join_f64(out[0], out[1]), dd.join_f64(out[2], out[3])
+        errs[passes] = max(max(_rel(q[i].numpy().T.reshape(-1), q_ref), _rel(r[i].numpy(), r_ref))
+                           for i, (q_ref, r_ref) in enumerate(refs))
     assert errs[3] < GATE < errs[1]
 
 
@@ -222,11 +262,8 @@ def test_wide_f32_3xtf32_products_meet_the_gates(what, n, monkeypatch):
     refined path, whose K2 solves carry it (its residual and quadrature are
     FP64, which the rounding leaves alone).  One TF32 pass is at least 20x
     worse on K1."""
-    rng = np.random.default_rng(n)
-    qe64 = 0.5 * rng.standard_normal((2, 9))
-    qe64[0] = oracle.demo_qe()
+    qe64, refs = _demo_pair(n)
     cfg = rod.RodConfig(n=n)
-    refs = [oracle.integrate_position(qe, n=n) for qe in qe64]
 
     def error(passes):
         with monkeypatch.context() as m:
