@@ -26,6 +26,12 @@ which raises on failure (exit code != 0, no result lines):
    the chains 3 x n=16 (B=131072) and 2 x n=64 (B=32768) on K4/K4 wide and
    K5/K5 wide against the f64 dense chain, and the segmented statics Newton
    (B=8192; dd residual B=1024) against the per-sample Newton on the CPU;
+4b. the statics layer: the dd Newton ``solve_statics_batched(dd_residual=True,
+   tol=1e-9)`` at N=16 (B=16384; K1, K2, K3) and n=64 (B=4096; K1, K2, K3
+   paired), held to the f64 dense residual and the per-sample f64 Newton;
+   the batched Riks walk ``arc_length_continuation_batched`` at N=16 over
+   4096 load rays (f32: K1 and K2, no K3) and its dd tier over 1024 (K3
+   too), held to the host f64 Riks walker on 4 rays;
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -34,7 +40,8 @@ which raises on failure (exit code != 0, no result lines):
    as a whole call (the N=16 fused and staged calls among them); a
    torch.profiler breakdown (device busy,
    idle share, top kernels) of the N=16 headline, refined n=256, staged
-   n=64, statics N=16, refined 3 x n=16 chain and segmented statics calls.
+   n=64, statics N=16, refined 3 x n=16 chain, segmented statics, dd
+   statics N=16 and f32 Riks calls.
 
 The last three lines of standard output are a JSON line with the kernels,
 the card's name and power limit as nvidia-smi prints them, and the JSON
@@ -468,9 +475,13 @@ def wide_inputs(dev):
     qe64 = torch.tensor(base, device=dev)
     qe6 = torch.tensor(np.concatenate([0.5 * base[:8192], 0.15 * base[:8192]], axis=1),
                        device=dev)
-    loads = torch.tensor(np.random.default_rng(1).uniform(-0.4, 0.4, (16384, 3)),
-                         dtype=torch.float32, device=dev)
-    return qe64, qe6, loads
+    return qe64, qe6, statics_loads(dev)
+
+
+def statics_loads(dev):
+    """The statics users' tip loads: U(-0.4, 0.4), seed 1, B=16384 (bench.py:179-206)."""
+    return torch.tensor(np.random.default_rng(1).uniform(-0.4, 0.4, (16384, 3)),
+                        dtype=torch.float32, device=dev)
 
 
 CFG64, CFG256, CFG64_6 = rod.RodConfig(n=64), rod.RodConfig(n=256), rod.RodConfig(n=64, na=6)
@@ -637,58 +648,220 @@ def phase_segment_paths(dev, launches: dict) -> None:
           f"|qe - per-sample f64 Newton| {err:.2e} over {picks} loads (bound {QE_TOL:.0e})")
     if not (bool(ref.converged.all()) and err <= QE_TOL):
         raise AssertionError(f"{what}: outside {QE_TOL:.0e} of solve_segmented_statics")
-    check_dd_newton(results["segmented dd statics"], inp["loads"][:B_SEG_DD], dev)
+    check_segmented_dd(results["segmented dd statics"], inp["loads"][:B_SEG_DD])
 
 
-def check_dd_newton(sol, loads, dev, picks: int = 16) -> None:
-    """What the dd Newton's tolerance bounds.  Every load: the K5 chain's
-    residual agrees with the f64 dense residual at the solution within
-    DD_RES_ERR, so the dense residual is <= tol + DD_RES_ERR.  ``picks``
-    loads: the strains lie within the first-order bound
-    2 (tol + DD_RES_ERR + |res(ref)|) / sigma_min(J) of the per-sample f64
-    Newton's, with J the dense residual's Jacobian there (sigma_min ~ 0.1
-    here, so tol = 1e-9 allows ~2e-8)."""
+def check_segmented_dd(sol, loads) -> None:
     what, tol = "segmented dd statics", SEG_DD_NEWTON["tol"]
     b, s_count, nq = sol.qe.shape
     if sol.qe_lo is None or (b, s_count, nq) != (B_SEG_DD, 2, 9) or not bool(sol.converged.all()):
         raise AssertionError(f"{what}: {int((~sol.converged).sum())} loads did not converge")
-    qe = dd.join_f64(sol.qe, sol.qe_lo)
-    zero = torch.zeros(3, dtype=torch.float64, device=dev)
-    dense = segment_statics.segmented_equilibrium_residual(
-        qe, loads.double(), zero, SEG_STATICS, method="dense").reshape(b, -1)
+    print(f"  {what}: all converged, max residual {float(sol.residual_norm.max()):.3e}")
+    zero = torch.zeros(3)
+
+    def dense_residual(q, f):
+        return segment_statics.segmented_equilibrium_residual(
+            q.reshape(-1, s_count, nq), f.to(q.device).double(), zero.to(q), SEG_STATICS,
+            method="dense").reshape(q.shape[0], -1)
+
+    def newton(f):
+        ref = segment_statics.solve_segmented_statics(f.double().cpu(), cfg=SEG_STATICS,
+                                                      tol=1e-12, max_iter=40, method="dense")
+        return ref.qe.reshape(f.shape[0], -1), ref.residual_norm, ref.converged
+
     res_dd = segment_statics.segmented_equilibrium_residual_dd(
-        (sol.qe, sol.qe_lo), loads, zero.float(), SEG_STATICS,
-        iters=SEG_DD_NEWTON["dd_iters"]).reshape(b, -1).double()
-    dd_err = float((res_dd - dense).abs().max())
+        (sol.qe, sol.qe_lo), loads, zero.to(loads), SEG_STATICS,
+        iters=SEG_DD_NEWTON["dd_iters"]).reshape(b, -1)
+    check_dd_newton(what, dd.join_f64(sol.qe, sol.qe_lo).reshape(b, -1), res_dd, loads, tol,
+                    dense_residual, newton)
+
+
+S16, S64 = cosserat.StaticsConfig(rod=rod.RodConfig(n=16)), cosserat.StaticsConfig(rod=CFG64)
+# tests/test_cosserat_statics.py:228 for the dd Newton, :333 and :357 for the Riks walks
+DD_NEWTON = dict(tol=1e-9, max_iter=25, iters=16, dd_residual=True)
+DD_TRUE_RES = 1e-9   # the f64 dense residual at the dd strains, max abs (:228-244)
+B_DD16, B_DD64, B_RIKS, B_RIKS_DD = 16384, 4096, 4096, 1024
+RIKS = dict(ds=0.25, steps=8, tol=2e-5, iters=16)
+RIKS_DD = dict(ds=0.25, steps=5, tol=1e-8, max_corrector=20, iters=16, dd_residual=True)
+RIKS_F32_TOL = (5e-3, 2e-2)   # lambda, qe against the host f64 walker (:351-354)
+RIKS_DD_TOL, RIKS_DD_RES = 1e-6, 1e-8
+RAYS_CHECKED = 4
+
+
+def load_rays(dev):
+    """Riks load rays: uniform directions, magnitudes U(0.4, 0.6) (the JAX
+    test's rays have 0.5-0.6), seed 4, B=4096."""
+    rng = np.random.default_rng(4)
+    d = rng.standard_normal((B_RIKS, 3))
+    d *= rng.uniform(0.4, 0.6, (B_RIKS, 1)) / np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.tensor(d, dtype=torch.float32, device=dev)
+
+
+def statics_layer_paths(loads, rays):
+    """Each statics-layer path as one call: (callable, kernels it must launch)."""
+    return {
+        "dd statics N=16 B=16384": (lambda: cosserat.solve_statics_batched(
+            loads, cfg=S16, **DD_NEWTON), ("K1", "K2", "K3")),
+        "dd statics n=64 B=4096": (lambda: cosserat.solve_statics_batched(
+            loads[:B_DD64], cfg=S64, **DD_NEWTON), ("K1w", "K2w", "K3w")),
+        "Riks N=16 B=4096": (lambda: cosserat.arc_length_continuation_batched(
+            rays, cfg=S16, **RIKS), ("K1", "K2")),
+        "dd Riks N=16 B=1024": (lambda: cosserat.arc_length_continuation_batched(
+            rays[:B_RIKS_DD], cfg=S16, **RIKS_DD), ("K1", "K2", "K3")),
+    }
+
+
+def phase_statics_layer(dev, launches: dict) -> None:
+    """The dd Newton (N=16, n=64) and the batched Riks walker (f32, dd),
+    held to the f64 dense residual, the per-sample f64 Newton and the host
+    f64 Riks walker on the card."""
+    loads, rays = statics_loads(dev), load_rays(dev)
+    results = {}
+    for what, (fn, needs) in statics_layer_paths(loads, rays).items():
+        results[what], counts = counted(what, fn, needs)
+        add_counts(launches, counts)
+        if not what.startswith("dd") and counts.get("K3", 0):
+            raise AssertionError(f"{what}: the f32 walk launched K3")
+        if what.startswith("dd statics"):
+            evals = int(results[what].iterations) + 1
+            print(f"    {evals - 1} Newton steps; launches per residual-and-Jacobian "
+                  f"evaluation: { {k: v / evals for k, v in counts.items()} }")
+        else:
+            k1 = counts.get("K1", 0)
+            print(f"    {k1} K1+K2 evaluations (anchor Newton, Keller tangent, corrector "
+                  f"iterates); launches per evaluation: "
+                  f"{ {k: v / k1 for k, v in counts.items()} }")
+    for what, cfg, b in (("dd statics N=16 B=16384", S16, B_DD16),
+                         ("dd statics n=64 B=4096", S64, B_DD64)):
+        check_statics_dd(what, results[what], loads[:b], cfg)
+    check_riks("Riks N=16 B=4096", results["Riks N=16 B=4096"], rays, False)
+    check_riks("dd Riks N=16 B=1024", results["dd Riks N=16 B=1024"], rays[:B_RIKS_DD], True)
+
+
+def check_statics_dd(what: str, sol, loads, cfg) -> None:
+    b, nq = sol.qe.shape
+    if sol.qe_lo is None or not bool(sol.converged.all()):
+        raise AssertionError(f"{what}: {int((~sol.converged).sum())} loads did not converge")
+    print(f"  {what}: all converged in {int(sol.iterations)} steps, max residual "
+          f"{float(sol.residual_norm.max()):.3e}")
+    zero = torch.zeros(3)
+
+    def dense_residual(q, f):
+        return cosserat.equilibrium_residual(q, f.to(q.device).double()[:, None, :], zero.to(q),
+                                             cfg, method="dense")
+
+    def newton(f):
+        ref = cosserat.solve_statics(f.double(), cfg=cfg, tol=1e-12, max_iter=40,
+                                     method="dense")
+        return ref.qe, ref.residual_norm, ref.converged
+
+    res_dd = cosserat.equilibrium_residual_dd((sol.qe, sol.qe_lo), loads, zero.to(loads), cfg)
+    picked = check_dd_newton(what, dd.join_f64(sol.qe, sol.qe_lo), res_dd, loads,
+                             DD_NEWTON["tol"], dense_residual, newton)
+    worst = float(picked.abs().max())
+    print(f"    f64 dense residual at 16 spread picks: max abs {worst:.3e} (bound "
+          f"{DD_TRUE_RES:.0e})")
+    if not worst < DD_TRUE_RES:
+        raise AssertionError(f"{what}: the f64 dense residual is not below {DD_TRUE_RES:.0e}")
+
+
+def check_riks(what: str, walk, rays, dd_tier: bool) -> None:
+    """Every ray converged at every step; RAYS_CHECKED spread rays against
+    the host f64 Riks walker (dense kinematics) on the card; in the dd tier
+    the last point of every ray an equilibrium of the f64 dense residual at
+    its own load factor."""
+    steps, b = walk.lambdas.shape
+    if not bool(walk.converged.all()):
+        raise AssertionError(f"{what}: {int((~walk.converged).sum())} steps did not converge")
+    lam, qes = walk.lambdas.double(), walk.qes.double()
+    kw = dict(RIKS_DD if dd_tier else RIKS)
+    if dd_tier:
+        lam, qes = lam + walk.lambdas_lo.double(), qes + walk.qes_lo.double()
+        host_kw, (lam_tol, qe_tol) = dict(tol=1e-11), (RIKS_DD_TOL, RIKS_DD_TOL)
+    else:
+        host_kw, (lam_tol, qe_tol) = dict(tol=1e-9), RIKS_F32_TOL
+    err_lam = err_qe = 0.0
+    for s in torch.linspace(0, b - 1, RAYS_CHECKED).long().tolist():
+        host = cosserat.arc_length_continuation(rays[s].double(), cfg=S16, ds=kw["ds"],
+                                                steps=kw["steps"], method="dense", **host_kw)
+        if not bool(host.converged.all()):
+            raise AssertionError(f"{what}: the host walker did not converge on ray {s}")
+        err_lam = max(err_lam, float((lam[:, s] - host.lambdas).abs().max()))
+        err_qe = max(err_qe, float((qes[:, s] - host.qes).abs().max()))
+    print(f"  {what}: all {b} rays converged at all {steps} steps (lambda reached "
+          f"{float(lam[-1].min()):.3f}..{float(lam[-1].max()):.3f}); against the host f64 walker "
+          f"over {RAYS_CHECKED} rays: |lambda| {err_lam:.3e} (bound {lam_tol:.0e}), |qe| "
+          f"{err_qe:.3e} (bound {qe_tol:.0e})")
+    if not (err_lam <= lam_tol and err_qe <= qe_tol):
+        raise AssertionError(f"{what}: outside its gate of the host walker")
+    if dd_tier:
+        loads = lam[-1][:, None, None] * rays.double()[:, None, :]
+        res = cosserat.equilibrium_residual(qes[-1], loads, loads.new_zeros(3), S16,
+                                            method="dense")
+        worst = float(torch.linalg.vector_norm(res, dim=-1).max())
+        print(f"    last point's f64 dense residual at its dd load factor: max over {b} rays "
+              f"{worst:.3e} (bound {RIKS_DD_RES:.0e})")
+        if not worst < RIKS_DD_RES:
+            raise AssertionError(f"{what}: the last point is not an f64 equilibrium")
+
+
+def phase_statics_layer_timing(dev: torch.device, card: str) -> None:
+    """Each statics-layer path as a whole call, and a profiler breakdown of
+    the dd Newton N=16 and the f32 Riks walk."""
+    paths = statics_layer_paths(statics_loads(dev), load_rays(dev))
+    batch = {"dd statics N=16 B=16384": B_DD16, "dd statics n=64 B=4096": B_DD64,
+             "Riks N=16 B=4096": B_RIKS, "dd Riks N=16 B=1024": B_RIKS_DD}
+    for what, (fn, _) in paths.items():
+        ms = cuda_time_ms(fn, warmup=1, reps=3)
+        print(f"  {what}: {ms:.4f} ms per call -> {batch[what] / ms * 1e3:.4g} "
+              f"{'solves' if 'statics' in what else 'walks'}/s [{card}]")
+    for what in ("dd statics N=16 B=16384", "Riks N=16 B=4096"):
+        prof = device_breakdown(paths[what][0], warmup=1, reps=2)
+        print(f"  profile {what}: host {prof['host_ms']:.4f} ms per call, device busy "
+              f"{prof['device_ms']:.4f} ms, idle {prof['idle']:.1%}, {prof['events']:.0f} "
+              f"device events per call [{card}]")
+        for name, ms, count in prof["top"]:
+            print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
+def check_dd_newton(what: str, qe, res_dd, loads, tol: float, dense_residual, newton,
+                    picks: int = 16):
+    """What a dd Newton's tolerance bounds.  ``qe (B, m)``: its f64 strains;
+    ``res_dd (B, m)``: the FP64 residual it converged on, at ``qe``;
+    ``dense_residual(q, loads)``: the f64 dense residual ``(P, m)`` on q's
+    device; ``newton(loads)``: the per-sample f64 Newton's ``(qe (P, m),
+    residual norm, converged)``.  Every load: the dd residual agrees with
+    the f64 dense residual within DD_RES_ERR, so the dense residual is
+    <= tol + DD_RES_ERR.  ``picks`` loads: the strains lie within the
+    first-order bound 2 (tol + DD_RES_ERR + |res(ref)|) / sigma_min(J) of
+    the per-sample f64 Newton's, with J the dense residual's Jacobian there
+    (sigma_min ~ 0.1 for the segmented rod, so tol = 1e-9 allows ~2e-8).
+    Returns the dense residual at the picks."""
+    b = qe.shape[0]
+    dense = dense_residual(qe, loads)
+    dd_err = float((res_dd.double() - dense).abs().max())
     dense_norm = torch.linalg.vector_norm(dense, dim=-1)
-    print(f"  {what}: all converged, max residual {float(sol.residual_norm.max()):.3e}; "
-          f"|dd residual - f64 dense residual| {dd_err:.3e} (bound {DD_RES_ERR:.0e}), max "
-          f"f64 dense residual {float(dense_norm.max()):.3e} (bound tol + {DD_RES_ERR:.0e}) "
+    print(f"  {what}: |dd residual - f64 dense residual| {dd_err:.3e} (bound {DD_RES_ERR:.0e}), "
+          f"max f64 dense residual {float(dense_norm.max()):.3e} (bound tol + {DD_RES_ERR:.0e}) "
           f"over all {b} loads")
     if not (dd_err <= DD_RES_ERR and float(dense_norm.max()) <= tol + DD_RES_ERR):
         raise AssertionError(f"{what}: the f64 dense residual is outside the tolerance")
 
-    idx = torch.linspace(0, b - 1, picks, device=dev).long()
-    tf = loads[idx].double().cpu()
-    ref = segment_statics.solve_segmented_statics(tf, cfg=SEG_STATICS, tol=1e-12, max_iter=40,
-                                                  method="dense")
-    q_ref = ref.qe.reshape(picks, -1)
-
-    def residual(q):
-        return segment_statics.segmented_equilibrium_residual(
-            q.reshape(picks, s_count, nq), tf, zero.cpu(), SEG_STATICS,
-            method="dense").reshape(picks, -1)
-
-    jac = torch.func.jacfwd(lambda d: residual(q_ref + d))(q_ref.new_zeros(s_count * nq))
+    idx = torch.linspace(0, b - 1, picks, device=qe.device).long()
+    q_ref, ref_norm, ref_converged = newton(loads[idx])
+    f_ref = loads[idx].to(q_ref.device)
+    jac = torch.func.jacfwd(lambda d: dense_residual(q_ref + d, f_ref))(
+        q_ref.new_zeros(q_ref.shape[1]))
     sigma_min = torch.linalg.svdvals(jac)[:, -1]
-    limit = 2 * (tol + DD_RES_ERR + ref.residual_norm) / sigma_min
-    err = (qe[idx].reshape(picks, -1).cpu() - q_ref).abs().max(dim=-1).values
+    limit = 2 * (tol + DD_RES_ERR + ref_norm) / sigma_min
+    err = (qe[idx].to(q_ref.device) - q_ref).abs().max(dim=-1).values
     print(f"    |qe - per-sample f64 Newton| max {float(err.max()):.3e} over {picks} loads; "
           f"sigma_min(J) {float(sigma_min.min()):.4f}..{float(sigma_min.max()):.4f}; "
           f"largest share of the first-order bound {float((err / limit).max()):.3e} "
           f"(bound >= {float(limit.min()):.3e})")
-    if not (bool(ref.converged.all()) and bool((err <= limit).all())):
+    if not (bool(ref_converged.all()) and bool((err <= limit).all())):
         raise AssertionError(f"{what}: strains outside what the tolerance bounds")
+    return dense[idx]
 
 
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
@@ -976,11 +1149,14 @@ def main() -> None:
     phase_narrow_slice(dev, launches)
     phase_wide_paths(dev, launches)
     phase_segment_paths(dev, launches)
+    print("== 4b. the statics layer")
+    phase_statics_layer(dev, launches)
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)
     phase_path_timing(dev, card)
     phase_segment_timing(dev, card)
+    phase_statics_layer_timing(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": spec["name"], "route": "cuda", "source": spec["source"],

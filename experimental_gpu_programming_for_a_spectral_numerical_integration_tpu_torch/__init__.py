@@ -3,9 +3,15 @@
 The JAX package ``experimental_gpu_programming_for_a_spectral_numerical_integration_tpu``
 beside this one is the reference.  This package ports its main path, the
 batched rod-shape solve ``qe (B, na*ne) -> (Q (B, n-1, 4), r (B, n-1, 3))``
-on grids up to n-1 = 512, the batched statics Newton built on it, and the
-multi-segment rod chains and their statics Newton, with hand-written CUDA
-kernels for NVIDIA Hopper (``csrc/``) in place of the Pallas TPU kernels.  It runs on the card unless the caller passes CPU
+on grids up to n-1 = 512, with hand-written CUDA kernels for NVIDIA Hopper
+(``csrc/``) in place of the Pallas TPU kernels, and the layers built on it:
+the collocation core with its implicit-function derivatives and the
+analytic IVP suite (``models/ivp.py``); the statics layer
+(``models/cosserat.py``: per-sample and batched Newton, the FP64 residual
+on K3 for 1e-9 tolerances, the Armijo line search, load sensitivities,
+load and arc-length continuation, host and batched); the bifurcation
+tools (``models/bifurcation.py``); and the multi-segment rod chains and
+their statics Newton.  It runs on the card unless the caller passes CPU
 tensors or ``device='cpu'`` (``ops/device.py``).  It imports torch and
 numpy, never jax.
 
@@ -24,12 +30,29 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .ops.collocation import SpectralGrid, make_grid  # noqa: E402
 from .ops.device import default_device  # noqa: E402
+from .models.bifurcation import (  # noqa: E402
+    CriticalPoint,
+    StabilityInfo,
+    detect_critical_points,
+    linearized_buckling_loads,
+    path_stability,
+    switch_branch,
+    switch_branch_batched,
+)
 from .models.cosserat import (  # noqa: E402
+    BatchedContinuationPath,
+    ContinuationPath,
     StaticsConfig,
     StaticsSolution,
+    arc_length_continuation,
+    arc_length_continuation_batched,
     equilibrium_residual,
+    equilibrium_residual_dd,
+    load_continuation,
     solve_statics,
     solve_statics_batched,
+    solve_statics_differentiable,
+    stiffness_profile,
 )
 from .models.rod import (  # noqa: E402
     RodConfig,
@@ -71,9 +94,24 @@ __all__ = [
     "default_device",
     "StaticsConfig",
     "StaticsSolution",
+    "stiffness_profile",
     "equilibrium_residual",
+    "equilibrium_residual_dd",
     "solve_statics",
     "solve_statics_batched",
+    "solve_statics_differentiable",
+    "load_continuation",
+    "ContinuationPath",
+    "BatchedContinuationPath",
+    "arc_length_continuation",
+    "arc_length_continuation_batched",
+    "StabilityInfo",
+    "CriticalPoint",
+    "path_stability",
+    "detect_critical_points",
+    "linearized_buckling_loads",
+    "switch_branch",
+    "switch_branch_batched",
     "SegmentedRodConfig",
     "SegmentedSolution",
     "uniform_segments",

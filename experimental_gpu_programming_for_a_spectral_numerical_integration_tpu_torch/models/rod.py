@@ -33,7 +33,7 @@ from ..ops import chebyshev
 from ..ops import collocation as coll
 from ..ops import doubledouble as dd
 from ..ops import lie
-from ..ops.device import as_tensor, canonical_device
+from ..ops.device import as_tensor, cached_constants, canonical_device
 
 __all__ = [
     "RodConfig",
@@ -77,7 +77,7 @@ class RodConfig:
         return coll.make_grid(self.n, self.length, device=device)
 
 
-@functools.lru_cache(maxsize=None)
+@cached_constants
 def _table(cfg: RodConfig, device: torch.device) -> torch.Tensor:
     return torch.tensor(cfg.basis_table, dtype=torch.float64, device=device)
 

@@ -43,7 +43,7 @@ from ..ops import doubledouble as dd
 from ..ops import lie
 from ..ops.device import as_tensor
 from . import rod, segments
-from .cosserat import _newton_step, _with_base, jvp_columns
+from .cosserat import _newton_step, _per_sample_jacobian, _with_base, jvp_columns
 
 __all__ = [
     "SegmentedStaticsConfig",
@@ -78,7 +78,7 @@ class SegmentedStaticsConfig:
         if self.tendons:
             raise NotImplementedError(
                 "tendons in segment statics need models/tendon.py, not ported yet: "
-                "ROADMAP.md Queue 1 item 10")
+                "ROADMAP.md Queue 1 item 4")
 
     @functools.cached_property
     def stiffness_per_segment(self) -> np.ndarray:
@@ -200,14 +200,6 @@ def segmented_equilibrium_residual(qe_segs, tip_force, tip_moment,
         for s in range(cfg.rods.num_segments)], dim=-2)
 
 
-def _as_f64(v, device) -> torch.Tensor:
-    """An f32 pair ``(hi, lo)``, or any tensor or array, as one f64 tensor."""
-    if isinstance(v, tuple):
-        hi = torch.as_tensor(v[0], device=device)
-        return dd.join_f64(hi, torch.as_tensor(v[1], device=device))
-    return torch.as_tensor(v, device=device).to(torch.float64)
-
-
 def segmented_equilibrium_residual_dd(qe_segs, tip_force, tip_moment,
                                       cfg: SegmentedStaticsConfig,
                                       iters: int = 20) -> torch.Tensor:
@@ -236,7 +228,7 @@ def segmented_equilibrium_residual_dd(qe_segs, tip_force, tip_moment,
     jq = dd.join_f64(*sol.junction_dd[0])                    # (..., S, 4)
     jr = dd.join_f64(*sol.junction_dd[1])
     r_tip = jr[..., -1, :]
-    tf, tm = _as_f64(tip_force, device), _as_f64(tip_moment, device)
+    tf, tm = dd.as_f64(tip_force, device), dd.as_f64(tip_moment, device)
     if cfg.follower:
         tf = torch.einsum("...ij,...j->...i", lie.quat_to_rot(jq[..., -1, :]), tf)
 
@@ -471,18 +463,13 @@ def solve_segmented_statics(tip_force, tip_moment=(0.0, 0.0, 0.0),
                                            tip_force, tip_moment, cfg, iters, method)
         return r.reshape(r.shape[:-2] + (flat,))
 
-    def jacobian(q):
-        # A shift shared by the batch: each sample's rows depend on its own
-        # strains only, so d res / d shift is the per-sample Jacobian.
-        return torch.func.jacfwd(lambda d: residual(q + d))(q.new_zeros(flat))
-
     res = residual(qe)
     k = torch.zeros(batch, dtype=torch.int32, device=device)
     for _ in range(max_iter):
         active = torch.linalg.vector_norm(res, dim=-1) > tol
         if not bool(active.any()):
             break
-        new_qe = qe - damping * _newton_step(jacobian(qe), res)
+        new_qe = qe - damping * _newton_step(_per_sample_jacobian(residual, qe), res)
         new_res = residual(new_qe)
         qe = torch.where(active[..., None], new_qe, qe)
         res = torch.where(active[..., None], new_res, res)

@@ -23,14 +23,13 @@ Solvers:
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import torch
 
 from . import chebyshev
 from . import doubledouble as dd
-from .device import canonical_device
+from .device import cached_constants, canonical_device
 from .lie import quat_skew_apply
 
 __all__ = [
@@ -73,11 +72,13 @@ def make_grid(n: int, length: float = 1.0, known: str = "last",
 
     ``known='last'``: the boundary value sits at ``x[n-1] = 0``, the
     reference's IVP case; the unknowns are points ``0..n-2``, tip first.
+    ``known='first'``: a terminal value at ``x[0] = L``, the unknowns
+    points ``1..n-1``.
     """
     return _make_grid(int(n), float(length), known, canonical_device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_constants
 def _make_grid(n: int, length: float, known: str,
                device: torch.device) -> SpectralGrid:
     dn = chebyshev.diff_matrix(n, length)
@@ -174,16 +175,64 @@ def solve_ivp_picard(grid: SpectralGrid, m_blocks: torch.Tensor, y0=None, g=None
     return chi
 
 
+def _solve_picard_transposed(grid: SpectralGrid, m_blocks: torch.Tensor, g: torch.Tensor,
+                             iters: int) -> torch.Tensor:
+    """``lam`` with ``(I ⊗ Dn_NN - M_hat)^T lam = g`` by the transposed Picard
+    iteration ``lam <- G^T (g + M_hat^T lam)`` (its operator ``(M_hat G)^T``
+    has the spectrum of ``G M_hat``, so it contracts as the forward one)."""
+    gt = grid.ginv.to(m_blocks.dtype).T
+    lam = _grid_matmul(gt, g)
+    for _ in range(iters):
+        lam = _grid_matmul(gt, g + torch.einsum("...ice,...ic->...ie", m_blocks, lam))
+    return lam
+
+
+class _PicardImplicit(torch.autograd.Function):
+    """The Picard solve with implicit-function derivatives (JAX: a
+    ``custom_jvp``).  ``jvp``: ``A dx = drhs + dM_hat x``; ``backward``, its
+    transpose: ``A^T lam = g``, then ``rhs_bar = lam`` and ``M_bar_i = lam_i
+    x_i^T`` per point.  Each is one more Picard solve with the same
+    ``iters``; ``torch.func.vmap`` batches all three."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(m_blocks, rhs, grid, iters):
+        return solve_ivp_picard(grid, m_blocks, rhs=rhs, iters=iters)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        m_blocks, rhs, grid, iters = inputs
+        ctx.grid, ctx.iters, ctx.rhs_shape = grid, iters, rhs.shape
+        ctx.save_for_backward(m_blocks, output)
+        ctx.save_for_forward(m_blocks, output)
+
+    @staticmethod
+    def jvp(ctx, dm, drhs, _grid, _iters):
+        m_blocks, x = ctx.saved_tensors
+        t = torch.zeros_like(x) if drhs is None else drhs.to(x.dtype)
+        if dm is not None:
+            t = t + _apply_point_blocks(dm, x)
+        return solve_ivp_picard(ctx.grid, m_blocks, rhs=t, iters=ctx.iters)
+
+    @staticmethod
+    def backward(ctx, g):
+        m_blocks, x = ctx.saved_tensors
+        lam = _solve_picard_transposed(ctx.grid, m_blocks, g, ctx.iters)
+        m_bar = (lam[..., :, None] * x[..., None, :]).sum_to_size(m_blocks.shape)
+        return m_bar, lam.sum_to_size(ctx.rhs_shape), None, None
+
+
 def solve_ivp_picard_implicit(grid: SpectralGrid, m_blocks: torch.Tensor,
                               rhs: torch.Tensor, iters: int = 24) -> torch.Tensor:
-    """The Picard solve that ``rod_shape(method='picard')`` calls.
-
-    Forward only in this port: the JAX version carries an implicit-function
-    tangent rule for the statics Newton, and its ``torch.autograd.Function``
-    arrives with the statics layer.  Autograd through this function
-    differentiates the unrolled iteration.
-    """
-    return solve_ivp_picard(grid, m_blocks, rhs=rhs, iters=iters)
+    """The Picard solve of ``(I ⊗ Dn_NN - M_hat) chi = rhs`` that
+    ``rod_shape(method='picard')`` calls, differentiated by the
+    implicit-function rule on ``A(m) x = rhs`` instead of through the
+    unrolled iteration: a tangent costs one more Picard solve,
+    ``dx = solve(m, drhs + dM_hat x)``, and a cotangent one transposed
+    solve.  Works under ``torch.func.jvp``, ``vmap``, ``jacfwd`` and
+    ``torch.autograd.grad``."""
+    return _PicardImplicit.apply(m_blocks, rhs, grid, iters)
 
 
 def _residual_f64(grid: SpectralGrid, x: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

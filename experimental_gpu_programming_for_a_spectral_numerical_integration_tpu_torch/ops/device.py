@@ -8,9 +8,11 @@ the CPU.  There is no fallback to the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["default_device", "canonical_device", "as_tensor"]
+__all__ = ["default_device", "canonical_device", "as_tensor", "cached_constants"]
 
 
 def default_device() -> torch.device:
@@ -40,3 +42,16 @@ def as_tensor(x, dtype: torch.dtype | None = None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if dtype is None else x.to(dtype)
     return torch.as_tensor(x, dtype=dtype, device=default_device())
+
+
+def cached_constants(build):
+    """``functools.lru_cache`` for a function that makes device constants,
+    run with ``torch.func``'s transforms suspended: a tensor made inside
+    ``torch.func.jvp`` is wrapped for that transform, and a cache first
+    filled there would hand the dead wrapper to every later call."""
+    @functools.lru_cache(maxsize=None)
+    @functools.wraps(build)
+    def cached(*args):
+        with torch._C._DisableFuncTorch():
+            return build(*args)
+    return cached

@@ -16,7 +16,7 @@ import torch
 
 from .device import as_tensor
 
-__all__ = ["split_f64", "join_f64"]
+__all__ = ["split_f64", "join_f64", "as_f64"]
 
 
 def split_f64(a) -> tuple[torch.Tensor, torch.Tensor]:
@@ -32,3 +32,11 @@ def split_f64(a) -> tuple[torch.Tensor, torch.Tensor]:
 def join_f64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """The f64 value ``hi + lo`` of a pair (exact: both words fit in f64)."""
     return hi.to(torch.float64) + lo.to(torch.float64)
+
+
+def as_f64(v, device) -> torch.Tensor:
+    """An f32 pair ``(hi, lo)``, or any tensor or array, as one f64 tensor
+    on ``device``."""
+    if isinstance(v, tuple):
+        return join_f64(torch.as_tensor(v[0], device=device), torch.as_tensor(v[1], device=device))
+    return torch.as_tensor(v, device=device).to(torch.float64)

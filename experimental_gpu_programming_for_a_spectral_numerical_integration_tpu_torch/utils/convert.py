@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.cosserat import StaticsConfig
+from ..models.bifurcation import CriticalPoint
+from ..models.cosserat import ContinuationPath, StaticsConfig
 from ..models.rod import RodConfig
 from ..models.segment_statics import SegmentedStaticsConfig
 from ..models.segments import SegmentedRodConfig
@@ -19,7 +20,8 @@ from ..ops.collocation import SpectralGrid
 from ..ops.device import canonical_device
 
 __all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_config_from_jax",
-           "segmented_statics_config_from_jax", "grid_from_numpy"]
+           "segmented_statics_config_from_jax", "grid_from_numpy", "continuation_path_from_jax",
+           "critical_point_from_jax"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -76,3 +78,28 @@ def grid_from_numpy(points, dn, dn_nn, dn_in, ginv, device=None) -> SpectralGrid
     return SpectralGrid(n=int(points.shape[0]), length=float(points[0]),
                         points=points, dn=dev(dn), dn_nn=dev(dn_nn),
                         dn_in=dev(dn_in).reshape(-1), ginv=dev(ginv))
+
+
+def continuation_path_from_jax(path, device=None) -> ContinuationPath:
+    """The port's :class:`ContinuationPath` on ``device`` (default: the card)
+    from any object with the JAX ``ContinuationPath``'s arrays ``lambdas``,
+    ``qes`` and ``converged`` (f64 stays f64)."""
+    device = canonical_device(device)
+    return ContinuationPath(lambdas=torch.tensor(np.asarray(path.lambdas), device=device),
+                            qes=torch.tensor(np.asarray(path.qes), device=device),
+                            converged=torch.tensor(np.asarray(path.converged, bool),
+                                                   device=device))
+
+
+def critical_point_from_jax(point, device=None) -> CriticalPoint:
+    """The port's :class:`CriticalPoint` on ``device`` (default: the card)
+    from any object with the JAX ``CriticalPoint``'s fields (``qe`` and
+    ``null_vector`` as f64 tensors)."""
+    device = canonical_device(device)
+
+    def f64(a):
+        return torch.tensor(np.asarray(a, np.float64), device=device)
+
+    return CriticalPoint(segment=int(point.segment), kind=str(point.kind), lam=float(point.lam),
+                         qe=f64(point.qe), null_vector=f64(point.null_vector),
+                         coupling=float(point.coupling))

@@ -1,6 +1,6 @@
 """On-card checks of the CUDA kernels against their plain versions: K1-K5
-narrow and wide, and the statics Newtons (single rod and segmented) that run
-on them.
+narrow and wide, and the statics Newtons (single rod and segmented) and the
+FP64 statics residual on K3 that run on them.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -292,3 +292,45 @@ def test_segmented_statics_batched_matches_per_sample(cuda):
                                                   max_iter=40)
     torch.testing.assert_close(dd_sol.qe.double() + dd_sol.qe_lo.double(), ref.qe, atol=1e-10,
                                rtol=0)
+
+
+@pytest.mark.parametrize("n,follower", [(16, False), (16, True), (64, False)])
+def test_dd_residual_on_k3_matches_plain(cuda, n, follower):
+    """The FP64 statics residual around K3 (narrow, and paired at n=64) on
+    the card against its evaluation on the CPU, where K3 runs its plain
+    version, at B=8 (the gate of tests/test_cosserat_statics.py:261)."""
+    cfg = cosserat.StaticsConfig(rod=rod.RodConfig(n=n), follower=follower,
+                                 distributed_force=(0.0, 0.0, -0.6))
+    rng = np.random.default_rng(n)
+    qe = dd.split_f64(torch.tensor(0.2 * rng.standard_normal((8, 9)), device=cuda))
+    loads = torch.tensor(rng.uniform(-0.3, 0.3, (8, 3)), dtype=torch.float32, device=cuda)
+    k3 = rfk.rod_shape_refined_kernel if n <= 33 else rfk.rod_shape_refined_kernel_wide
+    before = k3.launches
+    res = cosserat.equilibrium_residual_dd(qe, loads, torch.zeros(3, device=cuda), cfg)
+    assert k3.launches == before + 1
+    ref = cosserat.equilibrium_residual_dd(tuple(w.cpu() for w in qe), loads.cpu(),
+                                           torch.zeros(3), cfg)
+    gate = 1e-7 * max(float(ref.abs().max()), 1.0)
+    torch.testing.assert_close(res.cpu(), ref, atol=gate, rtol=0)
+
+
+def test_dd_newton_rod_outside_k3_domain_is_not_converged(cuda):
+    """K3's rho sentinel inside the dd Newton on the card: a rod started
+    beyond rho = 5 gets a NaN residual and comes back converged=False; its
+    neighbours converge as they would alone, and nothing syncs to raise."""
+    cfg = cosserat.StaticsConfig(rod=rod.RodConfig(n=16))
+    loads = torch.tensor(np.random.default_rng(7).uniform(-0.3, 0.3, (64, 3)),
+                         dtype=torch.float32, device=cuda)
+    newton = dict(cfg=cfg, tol=1e-9, max_iter=25, iters=16, dd_residual=True)
+    clean = cosserat.solve_statics_batched(loads, **newton)
+    qe0 = torch.zeros((64, 9), device=cuda)
+    qe0[5, 3] = 14.0                                   # rho = |K| L/2 = 7 > 5
+    k3 = rfk.rod_shape_refined_kernel.launches
+    sol = cosserat.solve_statics_batched(loads, qe0=qe0, **newton)
+    assert rfk.rod_shape_refined_kernel.launches > k3
+    expect = torch.ones(64, dtype=torch.bool, device=cuda)
+    expect[5] = False
+    assert torch.equal(sol.converged, expect) and torch.isnan(sol.residual_norm[5])
+    keep = expect.nonzero()[:, 0]
+    torch.testing.assert_close(sol.qe[keep], clean.qe[keep], rtol=0, atol=0)
+    torch.testing.assert_close(sol.qe_lo[keep], clean.qe_lo[keep], rtol=0, atol=0)

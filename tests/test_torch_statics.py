@@ -128,8 +128,3 @@ def test_statics_config_from_jax_round_trips():
         mine = cosserat.equilibrium_residual(torch.tensor(qe), torch.tensor(tf),
                                              torch.tensor(tm), cfg, method=method)
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0, atol=1e-12)
-
-
-def test_dd_residual_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cosserat.solve_statics_batched(torch.zeros((2, 3)), dd_residual=True)
