@@ -32,6 +32,17 @@ which raises on failure (exit code != 0, no result lines):
    the batched Riks walk ``arc_length_continuation_batched`` at N=16 over
    4096 load rays (f32: K1 and K2, no K3) and its dd tier over 1024 (K3
    too), held to the host f64 Riks walker on 4 rays;
+4c. the dynamics layer at the JAX bench's sizes: ``mass_matrix_fused`` (one
+   K1 and one K2 launch; K1w/K2w at n=64) against ``mass_matrix`` at N=16
+   (B=16384), na=6 (B=4096) and n=64 (B=2048); RK4 ``simulate`` at N=16,
+   B=2048, 25 steps, in the fused tier (exactly 100 K1 and 100 K2 launches)
+   and the default one, held to each other and, on 64 rods, to the f64
+   default tier; the actuated statics Newton (three tendons, B=2048, every
+   sample converged, each one's f64 balance residual), the one-tendon
+   closed form kappa_y = -T delta / EI_y (B=2048, rtol 1e-8) and tendon IK
+   over 64 reachable targets (tip error < 1e-6); RK4 in both tiers under
+   every load given as host data makes no host sync per step (torch's sync
+   debug mode);
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -41,7 +52,9 @@ which raises on failure (exit code != 0, no result lines):
    torch.profiler breakdown (device busy,
    idle share, top kernels) of the N=16 headline, refined n=256, staged
    n=64, statics N=16, refined 3 x n=16 chain, segmented statics, dd
-   statics N=16 and f32 Riks calls.
+   statics N=16 and f32 Riks calls; each dynamics-layer call (median of 3
+   after a warm-up), rod-steps/s of both RK4 tiers, and a breakdown of the
+   fused RK4 call.
 
 The last three lines of standard output are a JSON line with the kernels,
 the card's name and power limit as nvidia-smi prints them, and the JSON
@@ -54,6 +67,7 @@ import ctypes
 import json
 import subprocess
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -62,9 +76,12 @@ import torch
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     cosserat,
+    dynamics,
+    magnetics,
     rod,
     segment_statics,
     segments,
+    tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
     collocation as coll,
@@ -864,6 +881,258 @@ def check_dd_newton(what: str, qe, res_dd, loads, tol: float, dense_residual, ne
     return dense[idx]
 
 
+# Phase 4c, the dynamics layer, at the JAX bench's sizes (bench.py:244-304).
+B_MASS16, B_MASS6, B_MASS64 = 16384, 4096, 2048
+B_DYN, DYN_STEPS, DYN_DT, DYN_ITERS = 2048, 25, 0.002, 10
+B_DYN_REF = 64     # rods of the f32 trajectories held to an f64 one
+B_ACT, B_IK = 2048, 64
+MASS_GAP, MASS_GAP_NA6, MASS_SYM = 2e-3, 3e-3, 1e-6   # tests/test_mass_fused.py:33-36,51
+SIM_QE_TOL, SIM_QD_TOL = 5e-4, 5e-3                   # tests/test_mass_fused.py:65-68
+ACTUATED = dict(tol=2e-5, max_iter=12, iters=12, jac_chunk=3)   # bench.py:297-300
+ACT_RES = 1e-4     # f64 balance residual of the f32 actuated equilibria
+CLOSED_FORM_RTOL, IK_TOL = 1e-8, 1e-6                 # tests/test_tendon.py:43,240
+DYN_CFG = dynamics.DynamicsConfig(statics=S16, rho_a=1.0, rho_i=1e-2)
+MASS6_CFG = dynamics.DynamicsConfig(
+    statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16, na=6, ne=2)), rho_a=1.0, rho_i=1e-2)
+MASS64_CFG = dynamics.DynamicsConfig(statics=S64, rho_a=1.0, rho_i=1e-2)
+ACT_CFG = dynamics.DynamicsConfig(statics=S16, tendons=(
+    tendon.Tendon(offset=(0.0, 0.0, 0.05)), tendon.Tendon(offset=(0.0, 0.043, -0.025)),
+    tendon.Tendon(offset=(0.0, -0.043, -0.025))))
+ONE_TENDON = (0.05, 2.0)    # offset delta, EI_y
+ONE_CFG = dynamics.DynamicsConfig(
+    statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16), stiffness=(1.0, ONE_TENDON[1], 1.0)),
+    tendons=(tendon.Tendon(offset=(0.0, 0.0, ONE_TENDON[0])),))
+LOADED_CFG = dynamics.DynamicsConfig(statics=S16, rho_a=1.0, rho_i=1e-2, gravity=(0.0, 0.0, -9.81),
+                                     tendons=ACT_CFG.tendons,
+                                     magnets=(magnetics.Magnet(moment=(1.0, 0.0, 0.0)),))
+HOST_LOADS = dict(tip_force=(0.0, 0.0, -0.1), tip_moment=[0.01, 0.0, 0.0],
+                  base_accel=np.array([0.0, 0.1, 0.0]), tension=(0.5, 0.0, 0.3),
+                  b_field=((0.0, 0.0, 0.01), 1e-3 * np.eye(3)))
+IK_CFG = dynamics.DynamicsConfig(statics=S16, tendons=tuple(
+    tendon.Tendon(offset=(0.0, 0.05 * np.cos(a), 0.05 * np.sin(a)))
+    for a in (0.0, 2 * np.pi / 3, 4 * np.pi / 3)))     # tests/test_tendon.py:232-247
+
+
+def dynamics_inputs(dev):
+    """The dynamics layer's inputs: mass-matrix strains 0.5 N(0,1) (na=6:
+    0.4 N, 0.1 N; seeds 3, 4, 5, tests/test_mass_fused.py); RK4 from 0.3 x
+    the headline's strains at rest (bench.py:251-260); tensions U(0, 2)
+    (seed 2, bench.py:293-295) for the three-tendon and (seed 6) the
+    one-tendon batch; IK targets the tips of equilibria at tensions
+    U(0, 3) (seed 8)."""
+    head = 0.8 * np.random.default_rng(0).standard_normal((B_REAL, 9))
+    head[0] = rod.demo_qe(torch.float64, "cpu").numpy()
+    rng6 = np.random.default_rng(4)
+    return dict(
+        mass16=torch.tensor(0.5 * np.random.default_rng(3).standard_normal((B_MASS16, 9)),
+                            device=dev),
+        mass6=torch.tensor(np.concatenate([0.4 * rng6.standard_normal((B_MASS6, 6)),
+                                           0.1 * rng6.standard_normal((B_MASS6, 6))], axis=1),
+                           device=dev),
+        mass64=torch.tensor(0.5 * np.random.default_rng(5).standard_normal((B_MASS64, 9)),
+                            device=dev),
+        qe_dyn=torch.tensor(0.3 * head[:B_DYN], dtype=torch.float32, device=dev),
+        tension=torch.tensor(np.random.default_rng(2).uniform(0.0, 2.0, (B_ACT, 3)),
+                             dtype=torch.float32, device=dev),
+        tension1=torch.tensor(np.random.default_rng(6).uniform(0.0, 2.0, (B_ACT, 1)), device=dev),
+        targets=ik_targets(torch.tensor(np.random.default_rng(8).uniform(0.0, 3.0, (B_IK, 3)),
+                                        device=dev)))
+
+
+def rk4(qe0, tier: str):
+    return dynamics.simulate(qe0, torch.zeros_like(qe0), DYN_CFG, dt=DYN_DT, steps=DYN_STEPS,
+                             iters=DYN_ITERS, record_energy=False, mass_tier=tier)
+
+
+def dynamics_paths(inp):
+    """Each dynamics-layer path as one call: (callable, kernels it must launch)."""
+    zeros = torch.zeros((B_ACT, 9), dtype=torch.float32, device=inp["tension"].device)
+    return {
+        "mass_matrix_fused N=16 B=16384": (lambda: dynamics.mass_matrix_fused(
+            inp["mass16"], DYN_CFG, iters=20), ("K1", "K2")),
+        "mass_matrix_fused na=6 B=4096": (lambda: dynamics.mass_matrix_fused(
+            inp["mass6"], MASS6_CFG, iters=20), ("K1", "K2")),
+        "mass_matrix_fused n=64 B=2048": (lambda: dynamics.mass_matrix_fused(
+            inp["mass64"], MASS64_CFG, iters=20), ("K1w", "K2w")),
+        "RK4 fused N=16 B=2048": (lambda: rk4(inp["qe_dyn"], "fused"), ("K1", "K2")),
+        "RK4 default N=16 B=2048": (lambda: rk4(inp["qe_dyn"], "xla"), ()),
+        "actuated statics B=2048": (lambda: dynamics.solve_contact_statics(
+            ACT_CFG, qe0=zeros, tension=inp["tension"], **ACTUATED), ()),
+        "one-tendon statics B=2048": (lambda: dynamics.solve_contact_statics(
+            ONE_CFG, qe0=zeros.double(), tension=inp["tension1"], tol=1e-11), ()),
+        "tendon_ik B=64": (lambda: tendon.tendon_ik(inp["targets"], IK_CFG, gn_steps=20), ()),
+    }
+
+
+def ik_targets(tension):
+    """The tips of the three-tendon equilibria at ``tension``: reachable
+    targets by construction."""
+    sol = dynamics.solve_contact_statics(IK_CFG, qe0=torch.zeros(
+        (tension.shape[0], 9), dtype=torch.float64, device=tension.device), tension=tension,
+        tol=1e-11)
+    if not bool(sol.converged.all()):
+        raise AssertionError("the IK targets' forward equilibria did not converge")
+    return rod.rod_shape(sol.qe, cfg=IK_CFG.rod, method="picard", iters=16).tip_position
+
+
+def phase_dynamics_layer(dev, launches: dict) -> None:
+    """The fused mass lane against ``mass_matrix``, the two RK4 tiers against
+    each other (and an f64 trajectory), the actuated statics Newton, the
+    one-tendon closed form and tendon IK."""
+    inp = dynamics_inputs(dev)
+    results = {}
+    for what, (fn, needs) in dynamics_paths(inp).items():
+        results[what], counts = counted(what, fn, needs)
+        add_counts(launches, counts)
+        if what.startswith("RK4 fused"):
+            calls = 4 * DYN_STEPS
+            if counts != {"K1": calls, "K2": calls}:
+                raise AssertionError(f"{what}: launches {counts}, expected {calls} K1 and K2 "
+                                     "(one of each per RK4 stage)")
+    check_mass(inp, results)
+    check_rk4(inp, results["RK4 fused N=16 B=2048"], results["RK4 default N=16 B=2048"])
+    check_loaded_rk4_syncs_not(inp["qe_dyn"])
+    check_actuated(inp, results["actuated statics B=2048"], results["one-tendon statics B=2048"])
+    ik = results["tendon_ik B=64"]
+    worst = float(ik.tip_error.max())
+    print(f"  tendon_ik over {B_IK} reachable targets: max tip error {worst:.3e} (bound "
+          f"{IK_TOL:.0e}); tensions {float(ik.tension.min()):.3f}..{float(ik.tension.max()):.3f}")
+    if not (ik.tip_error.shape == (B_IK,) and worst < IK_TOL):
+        raise AssertionError("tendon_ik: a target was not reached")
+
+
+def check_mass(inp, results) -> None:
+    """tests/test_mass_fused.py's gates against ``mass_matrix`` on the card
+    (f64 input, iters 20)."""
+    for (what, cfg, qe, gap_tol, per_sample) in (
+            ("mass_matrix_fused N=16 B=16384", DYN_CFG, inp["mass16"], MASS_GAP, True),
+            ("mass_matrix_fused na=6 B=4096", MASS6_CFG, inp["mass6"], MASS_GAP_NA6, False),
+            ("mass_matrix_fused n=64 B=2048", MASS64_CFG, inp["mass64"], MASS_GAP, True)):
+        m_f = results[what]
+        ref = dynamics.mass_matrix(qe, cfg, iters=20)
+        if m_f.shape != ref.shape or not bool(torch.isfinite(m_f).all()):
+            raise AssertionError(f"{what}: shape {tuple(m_f.shape)} or non-finite output")
+        if per_sample:
+            gap = float((torch.linalg.matrix_norm(m_f - ref) / torch.linalg.matrix_norm(ref)).max())
+        else:
+            gap = float(torch.linalg.vector_norm(m_f - ref) / torch.linalg.vector_norm(ref))
+        sym = float((m_f - m_f.transpose(-1, -2)).abs().max())
+        eig = float(torch.linalg.eigvalsh(m_f).min())
+        print(f"  {what}: relative Frobenius gap to mass_matrix {gap:.3e} (bound {gap_tol:.0e}"
+              f"{', worst sample' if per_sample else ', whole batch'}), asymmetry {sym:.3e} "
+              f"(bound {MASS_SYM:.0e}), smallest eigenvalue {eig:.3e} (> 0)")
+        if not (gap < gap_tol and sym < MASS_SYM and eig > 0.0):
+            raise AssertionError(f"{what}: outside tests/test_mass_fused.py's gates")
+
+
+def check_rk4(inp, fused, default) -> None:
+    """Both tiers finite and of shape (steps, B, 9), within
+    tests/test_mass_fused.py:65-68 of each other; B_DYN_REF rods of each
+    within the same bounds of the f64 default tier."""
+    shape = (DYN_STEPS, B_DYN, 9)
+    for what, traj in (("fused", fused), ("default", default)):
+        if traj.qes.shape != shape or not bool(torch.isfinite(traj.qes).all() &
+                                               torch.isfinite(traj.qds).all()):
+            raise AssertionError(f"RK4 {what}: shape {tuple(traj.qes.shape)} or non-finite")
+    ref = rk4(inp["qe_dyn"][:B_DYN_REF].double(), "xla")
+    gaps = {"fused - default": (fused.qes - default.qes, fused.qds - default.qds),
+            "fused - f64": (fused.qes[:, :B_DYN_REF] - ref.qes, fused.qds[:, :B_DYN_REF] - ref.qds),
+            "default - f64": (default.qes[:, :B_DYN_REF] - ref.qes,
+                              default.qds[:, :B_DYN_REF] - ref.qds)}
+    moved = float((default.qes[-1] - inp["qe_dyn"]).abs().max())
+    for what, (dqe, dqd) in gaps.items():
+        eq, ed = float(dqe.abs().max()), float(dqd.abs().max())
+        print(f"  RK4 {what}: max |qe| {eq:.3e} (bound {SIM_QE_TOL:.0e}), max |qd| {ed:.3e} "
+              f"(bound {SIM_QD_TOL:.0e}); the strains moved up to {moved:.3e} in "
+              f"{DYN_STEPS} steps")
+        if not (eq < SIM_QE_TOL and ed < SIM_QD_TOL):
+            raise AssertionError(f"RK4 {what}: outside tests/test_mass_fused.py:65-68")
+
+
+def host_syncs(fn):
+    """``(fn(), the host syncs torch's sync debug mode saw in it)``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def check_loaded_rk4_syncs_not(qe0) -> None:
+    """RK4 in both tiers with every constant load given as host data
+    (tuples, lists, numpy): they are copied to the card once per call, so
+    the loop, the energy record included, makes no host sync: three steps
+    sync as often as one under torch's sync debug mode."""
+    for tier in dynamics.MASS_TIERS:
+        def run(steps):
+            return dynamics.simulate(qe0, torch.zeros_like(qe0), LOADED_CFG, dt=DYN_DT,
+                                     steps=steps, iters=DYN_ITERS, mass_tier=tier, **HOST_LOADS)
+
+        run(1)
+        _, once = host_syncs(lambda: run(1))
+        traj, thrice = host_syncs(lambda: run(3))
+        ok = bool(torch.isfinite(traj.qes).all() & torch.isfinite(traj.energies).all())
+        print(f"  RK4 {tier} tier, B={qe0.shape[0]}, every load constant host data, with the "
+              f"energy record: host syncs {once} in 1 step, {thrice} in 3; finite {ok}")
+        if not (ok and thrice == once and traj.qes.shape == (3,) + tuple(qe0.shape)):
+            raise AssertionError(f"RK4 {tier} with host loads: a host sync per step, or "
+                                 f"shape {tuple(traj.qes.shape)} or non-finite output")
+
+
+def check_actuated(inp, act, one) -> None:
+    """Every three-tendon sample converged, each one's f64 balance residual
+    (24 Picard steps) below ACT_RES; the one-tendon batch on the closed form
+    kappa_y = -T delta / EI_y."""
+    conv = int(act.converged.sum())
+    res = dynamics._balance_residual_fn(ACT_CFG, None, None, 24,
+                                        tension=inp["tension"].double())(act.qe.double())
+    worst = float(torch.linalg.vector_norm(res, dim=-1).max())
+    print(f"  actuated statics: {conv} of {B_ACT} converged in {int(act.iterations)} Newton "
+          f"steps (tol {ACTUATED['tol']:.0e}); f64 balance residual max {worst:.3e} (bound "
+          f"{ACT_RES:.0e})")
+    if conv != B_ACT or not worst < ACT_RES:
+        raise AssertionError("actuated statics: a sample did not converge or balance")
+    delta, ei_y = ONE_TENDON
+    kappa = rod.curvature_at_points(ONE_CFG.rod, one.qe)
+    expected = -inp["tension1"] * delta / ei_y                         # (B, 1)
+    rel = float(((kappa[..., 1] - expected) / expected).abs().max())
+    off = float(kappa[..., [0, 2]].abs().max())
+    print(f"  one-tendon statics: {int(one.converged.sum())} of {B_ACT} converged (tol 1e-11) in "
+          f"{int(one.iterations)} steps; kappa_y vs -T delta/EI_y: max relative error {rel:.3e} "
+          f"(bound {CLOSED_FORM_RTOL:.0e}), other components {off:.3e}")
+    if not (bool(one.converged.all()) and rel < CLOSED_FORM_RTOL and off < 1e-9):
+        raise AssertionError("one-tendon statics: off the closed form")
+
+
+def phase_dynamics_layer_timing(dev: torch.device, card: str) -> None:
+    """Each dynamics-layer call (CUDA events, median of 3 after a warm-up),
+    rod-steps/s of both RK4 tiers, and a profiler breakdown of the fused RK4
+    call at 5 of its steps (the per-step work is the same)."""
+    inp = dynamics_inputs(dev)
+    for what, (fn, _) in dynamics_paths(inp).items():
+        ms = cuda_time_ms(fn, warmup=1, reps=3)
+        if what.startswith("RK4"):
+            rate = f"{B_DYN * DYN_STEPS / ms * 1e3:.4g} rod-steps/s"
+        elif what.startswith("mass"):
+            rate = f"{int(what.split('B=')[1]) / ms * 1e3:.4g} mass matrices/s"
+        else:
+            rate = f"{int(what.split('B=')[1]) / ms * 1e3:.4g} solves/s"
+        print(f"  {what}: {ms:.4f} ms per call -> {rate} [{card}]")
+    short = inp["qe_dyn"]
+    prof = device_breakdown(lambda: dynamics.simulate(
+        short, torch.zeros_like(short), DYN_CFG, dt=DYN_DT, steps=5, iters=DYN_ITERS,
+        record_energy=False, mass_tier="fused"), warmup=1, reps=1)
+    print(f"  profile RK4 fused N=16 B=2048 (5 steps): host {prof['host_ms']:.4f} ms per call, "
+          f"device busy {prof['device_ms']:.4f} ms, idle {prof['idle']:.1%}, "
+          f"{prof['events']:.0f} device events per call [{card}]")
+    for name, ms, count in prof["top"]:
+        print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
     """Least ms on the card and what bounds it: operations at the published
     peaks (an FMA is 2 FLOP) against bytes at the HBM rate.  ``mat_fma`` are
@@ -1151,12 +1420,15 @@ def main() -> None:
     phase_segment_paths(dev, launches)
     print("== 4b. the statics layer")
     phase_statics_layer(dev, launches)
+    print("== 4c. the dynamics layer")
+    phase_dynamics_layer(dev, launches)
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)
     phase_path_timing(dev, card)
     phase_segment_timing(dev, card)
     phase_statics_layer_timing(dev, card)
+    phase_dynamics_layer_timing(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": spec["name"], "route": "cuda", "source": spec["source"],

@@ -10,10 +10,14 @@ analytic IVP suite (``models/ivp.py``); the statics layer
 (``models/cosserat.py``: per-sample and batched Newton, the FP64 residual
 on K3 for 1e-9 tolerances, the Armijo line search, load sensitivities,
 load and arc-length continuation, host and batched); the bifurcation
-tools (``models/bifurcation.py``); and the multi-segment rod chains and
-their statics Newton.  It runs on the card unless the caller passes CPU
-tensors or ``device='cpu'`` (``ops/device.py``).  It imports torch and
-numpy, never jax.
+tools (``models/bifurcation.py``); the multi-segment rod chains and
+their statics Newton (routed tendons included); tendon and magnetic
+actuation (``models/tendon.py``, ``models/magnetics.py``) and the
+single-rod Lagrangian dynamics (``models/dynamics.py``: the mass matrix,
+also from K1 + K2, RK4 ``simulate``, and the damped-Newton contact and
+actuated statics with tendon inverse kinematics).  It runs on the card
+unless the caller passes CPU tensors or ``device='cpu'``
+(``ops/device.py``).  It imports torch and numpy, never jax.
 
 Suggested import alias::
 
@@ -54,6 +58,24 @@ from .models.cosserat import (  # noqa: E402
     solve_statics_differentiable,
     stiffness_profile,
 )
+from .models.dynamics import (  # noqa: E402
+    ContactCylinder,
+    ContactPlane,
+    ContactSphere,
+    ContactStaticsSolution,
+    DynamicsConfig,
+    Trajectory,
+    accelerations,
+    damped_newton,
+    kinetic_energy,
+    mass_matrix,
+    mass_matrix_fused,
+    potential_energy,
+    simulate,
+    solve_contact_statics,
+    total_energy,
+)
+from .models.magnetics import Magnet  # noqa: E402
 from .models.rod import (  # noqa: E402
     RodConfig,
     RodSolution,
@@ -68,6 +90,7 @@ from .models.segment_statics import (  # noqa: E402
     SegmentedStaticsConfig,
     SegmentedStaticsSolution,
     segmented_equilibrium_residual,
+    segmented_tendon_lengths,
     solve_segmented_statics,
     solve_segmented_statics_batched,
 )
@@ -77,6 +100,14 @@ from .models.segments import (  # noqa: E402
     project_global_strain,
     segmented_rod_shape,
     uniform_segments,
+)
+from .models.tendon import (  # noqa: E402
+    Tendon,
+    TendonIKSolution,
+    tendon_generalized_force,
+    tendon_ik,
+    tendon_lengths,
+    tip_sensitivity,
 )
 
 __version__ = "0.1.0"
@@ -120,6 +151,29 @@ __all__ = [
     "SegmentedStaticsConfig",
     "SegmentedStaticsSolution",
     "segmented_equilibrium_residual",
+    "segmented_tendon_lengths",
     "solve_segmented_statics",
     "solve_segmented_statics_batched",
+    "Tendon",
+    "TendonIKSolution",
+    "tendon_lengths",
+    "tendon_generalized_force",
+    "tip_sensitivity",
+    "tendon_ik",
+    "Magnet",
+    "ContactPlane",
+    "ContactSphere",
+    "ContactCylinder",
+    "DynamicsConfig",
+    "Trajectory",
+    "ContactStaticsSolution",
+    "mass_matrix",
+    "mass_matrix_fused",
+    "kinetic_energy",
+    "potential_energy",
+    "total_energy",
+    "accelerations",
+    "simulate",
+    "damped_newton",
+    "solve_contact_statics",
 ]

@@ -388,11 +388,14 @@ def equilibrium_residual_dd(qe, tip_force, tip_moment, cfg: StaticsConfig,
     return _weak_form(c, c.stiffness * xi - tau).to(torch.float32)
 
 
-def _per_sample_jacobian(res, q: torch.Tensor) -> torch.Tensor:
+def _per_sample_jacobian(res, q: torch.Tensor, chunk_size: int | None = None) -> torch.Tensor:
     """``d res / d q`` per sample, ``(..., n_out, nq)``, for a residual whose
-    samples depend on their own strains only: the Jacobian along a shift
-    shared by the batch."""
-    return torch.func.jacfwd(lambda d: res(q + d))(q.new_zeros(q.shape[-1]))
+    samples depend on their own strains only: one jvp per unit direction
+    shared by the batch, ``chunk_size`` directions at a time (default all)."""
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    cols = torch.func.vmap(lambda e: torch.func.jvp(res, (q,), (e.expand(q.shape),))[1],
+                           chunk_size=chunk_size)(eye)
+    return torch.movedim(cols, 0, -1)
 
 
 def _newton_step(jac: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -442,11 +445,9 @@ def _fused_state_and_tangents(qe: torch.Tensor, cfg: StaticsConfig, iters: int,
     if na == 6:
         gamma = basis_ops.strain_at_points(qe, table)[..., 3:]
         dgamma = dk_dirs[:, None, :, 3:].expand(nq, b, npts, 3)
-        db = torch.func.vmap(lambda dq, dg: torch.func.jvp(
-            lie.rod_tangent, (q_unk, gamma), (dq, dg))[1])(dq_dirs, dgamma)
+        db = lie.rod_tangent_jvp(q_unk, dq_dirs, gamma, dgamma)
     else:
-        db = torch.func.vmap(lambda dq: torch.func.jvp(
-            lie.quat_tangent, (q_unk,), (dq,))[1])(dq_dirs)
+        db = lie.rod_tangent_jvp(q_unk, dq_dirs)
     ginv = rc.grid(qe.device).ginv.to(qe.dtype)
     dr_dirs = torch.matmul(ginv, db)
     return q_full, r_full, dq_dirs, dr_dirs

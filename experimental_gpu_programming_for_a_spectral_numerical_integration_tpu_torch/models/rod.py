@@ -170,11 +170,19 @@ def _check_rho(qe, cfg: RodConfig, max_rho: float, where: str) -> None:
         )
 
 
+@cached_constants
+def _default_state(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def initial_state(v, default, like: torch.Tensor, dim: int) -> torch.Tensor:
-    """A boundary value (``default`` when ``v`` is None) in ``like``'s dtype
-    and device, broadcast over its leading axes: ``(..., dim)``."""
-    v = torch.as_tensor(default if v is None else v)
-    return v.to(device=like.device, dtype=like.dtype).expand(like.shape[:-1] + (dim,))
+    """A boundary value (``default`` when ``v`` is None, cached on the device
+    so that no call copies it from the host) in ``like``'s dtype and device,
+    broadcast over its leading axes: ``(..., dim)``."""
+    if v is None:
+        v = _default_state(default, like.device, like.dtype)
+    v = torch.as_tensor(v).to(device=like.device, dtype=like.dtype)
+    return v.expand(like.shape[:-1] + (dim,))
 
 
 def quaternion_kinematics(qe, q_init=None, cfg: RodConfig = RodConfig(),
@@ -363,8 +371,8 @@ def rod_shape(qe, q_init=None, r_init=None, cfg: RodConfig = RodConfig(),
                            positions=r.reshape(batch + r.shape[1:]))
 
     grid = cfg.grid(qe_arr.device)
-    r0 = torch.as_tensor(DEFAULT_R_INIT if r_init is None else r_init,
-                         device=qe_arr.device)
+    r0 = (_default_state(DEFAULT_R_INIT, qe_arr.device, torch.float32) if r_init is None
+          else torch.as_tensor(r_init, device=qe_arr.device))
 
     if method == "refined":
         q_hi, q_lo = quaternion_kinematics(qe, q_init, cfg, method="refined",

@@ -13,7 +13,7 @@ with ``r_tip`` the rod's tip (the last segment's point 0), so every segment
 couples to every segment beyond it through the chain.
 
 * :func:`solve_segmented_statics`: per-sample Newton on the torch chain
-  ('picard' or 'dense'), the Jacobian from ``torch.func.jacfwd``; the
+  ('picard' or 'dense'), the Jacobian from ``torch.func`` jvps; the
   reference of the batched solver.
 * :func:`solve_segmented_statics_batched`: Newton over the whole batch on the
   kernels.  Each step runs, per segment, one K4 solve for the state and one
@@ -23,9 +23,12 @@ couples to every segment beyond it through the chain.
   (:func:`segmented_equilibrium_residual_dd`).  The step is
   ``torch.linalg.solve_ex`` (no host sync).
 
-Routed tendons (the JAX ``tendons``, ``segmented_tendon_lengths`` and the
-``tension=`` load) need ``models/tendon.py``, which is not ported yet: a
-config with tendons raises ``NotImplementedError``.
+Routed tendons (:mod:`.tendon`): a cable anchored at segment
+``tendon_end[k]``'s tip covers segments ``0..tendon_end[k]``, each
+segment's length integral on its own grid (:func:`segmented_tendon_lengths`,
+the capstan turning angle carried across junctions), so a mid-rod
+termination stays spectral.  ``tension=`` on the per-sample residual and
+Newton adds the actuation ``+ sum_k T_k dl_k/dqe``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..ops import doubledouble as dd
 from ..ops import lie
 from ..ops.device import as_tensor
 from . import rod, segments
+from . import tendon as tendon_mod
 from .cosserat import _newton_step, _per_sample_jacobian, _with_base, jvp_columns
 
 __all__ = [
@@ -50,6 +54,7 @@ __all__ = [
     "SegmentedStaticsSolution",
     "segmented_equilibrium_residual",
     "segmented_equilibrium_residual_dd",
+    "segmented_tendon_lengths",
     "segmented_residual_and_jacobian_fused",
     "solve_segmented_statics",
     "solve_segmented_statics_batched",
@@ -64,7 +69,10 @@ class SegmentedStaticsConfig:
     Kirchhoff 3 or Reissner 6), or one flat tuple for every segment.
     ``kappa0``: per-segment rest strains ``(S, na*ne)`` or ``None``.
     ``follower``: the tip force is given in the tip's body frame.
-    ``tendons``: must stay empty until ``models/tendon.py`` is ported.
+    ``tendons``: routed cables (:class:`~.tendon.Tendon`), each routing
+    evaluated per covered segment on that segment's normalized grid;
+    ``tendon_end[k]``: the segment at whose tip tendon ``k`` is anchored
+    (default: the rod's tip).
     """
 
     rods: segments.SegmentedRodConfig = field(
@@ -73,12 +81,22 @@ class SegmentedStaticsConfig:
     kappa0: tuple | None = None
     follower: bool = False
     tendons: tuple = ()
+    tendon_end: tuple | None = None
 
-    def __post_init__(self):
-        if self.tendons:
-            raise NotImplementedError(
-                "tendons in segment statics need models/tendon.py, not ported yet: "
-                "ROADMAP.md Queue 1 item 4")
+    @property
+    def tendon_last_segment(self) -> tuple:
+        """Per tendon, the index of the last covered segment (its anchor)."""
+        if not self.tendons:
+            return ()
+        if self.tendon_end is None:
+            return (self.rods.num_segments - 1,) * len(self.tendons)
+        if len(self.tendon_end) != len(self.tendons):
+            raise ValueError(f"tendon_end has {len(self.tendon_end)} entries for "
+                             f"{len(self.tendons)} tendons")
+        for e in self.tendon_end:
+            if not 0 <= int(e) < self.rods.num_segments:
+                raise ValueError(f"tendon_end entry {e} outside 0..{self.rods.num_segments - 1}")
+        return tuple(int(e) for e in self.tendon_end)
 
     @functools.cached_property
     def stiffness_per_segment(self) -> np.ndarray:
@@ -186,18 +204,48 @@ def _segment_residual_from_state(qe_s, q_full, r_full, r_tip, q_tip, tip_force,
     return _weak_form(c, s, c.stiffness[s] * kappa - tau)
 
 
+def segmented_tendon_lengths(qe_segs, cfg: SegmentedStaticsConfig, iters: int = 24,
+                             method: str = "picard") -> torch.Tensor:
+    """Routed lengths ``(..., K)`` of ``cfg.tendons`` over their covered
+    segments, each segment's share the spectral length integral on its own
+    grid (``tendon.lengths_from_state``), the capstan turning angle carried
+    from each segment into the next."""
+    qe_segs = as_tensor(qe_segs)
+    qs, rs, _ = _chained_full_states(qe_segs, cfg, iters, method)
+    lens = []
+    for t, last in zip(cfg.tendons, cfg.tendon_last_segment):
+        total, theta = 0.0, None
+        for s in range(last + 1):                            # base segment -> anchor
+            contrib, theta = tendon_mod.lengths_from_state(
+                rs[s], qs[s], (t,), cfg.rods.segments[s], cfg.quad_weights[s], theta0=theta,
+                return_theta=True)
+            total = total + contrib[..., 0]
+        lens.append(total)
+    return torch.stack(lens, dim=-1)
+
+
 def segmented_equilibrium_residual(qe_segs, tip_force, tip_moment,
                                    cfg: SegmentedStaticsConfig, iters: int = 24,
-                                   method: str = "picard") -> torch.Tensor:
+                                   method: str = "picard", tension=None) -> torch.Tensor:
     """Stacked weak-form balance residual ``(..., S, na*ne)`` on the torch
-    chain (``method`` 'picard' or 'dense')."""
+    chain (``method`` 'picard' or 'dense').  ``tension (..., K)`` with
+    ``cfg.tendons`` adds ``+ sum_k T_k dl_k/dqe`` (``torch.func.grad`` of the
+    cable potential)."""
     qe_segs = as_tensor(qe_segs)
     qs, rs, r_tip = _chained_full_states(qe_segs, cfg, iters, method)
     q_tip = qs[-1][..., 0, :]
-    return torch.stack([
+    out = torch.stack([
         _segment_residual_from_state(qe_segs[..., s, :], qs[s], rs[s], r_tip, q_tip,
                                      tip_force, tip_moment, s, cfg)
         for s in range(cfg.rods.num_segments)], dim=-2)
+    if tension is not None and cfg.tendons:
+        t_vec = torch.as_tensor(tension, dtype=qe_segs.dtype, device=qe_segs.device)
+
+        def cable_potential(q_):
+            return torch.sum(t_vec * segmented_tendon_lengths(q_, cfg, iters, method))
+
+        out = out + torch.func.grad(cable_potential)(qe_segs)
+    return out
 
 
 def segmented_equilibrium_residual_dd(qe_segs, tip_force, tip_moment,
@@ -304,11 +352,9 @@ def _segmented_fused_state_and_tangents(qe: torch.Tensor, cfg: SegmentedStaticsC
             gamma = basis_ops.strain_at_points(qe_s, table)[..., 3:]
             dgamma = torch.cat([q_unk.new_zeros((ndir - nq, b, npts, 3)),
                                 dk_dirs[:, None, :, 3:].expand(nq, b, npts, 3)])
-            db = torch.func.vmap(lambda dq, dg: torch.func.jvp(
-                lie.rod_tangent, (q_unk, gamma), (dq, dg))[1])(dq_dirs, dgamma)
+            db = lie.rod_tangent_jvp(q_unk, dq_dirs, gamma, dgamma)
         else:
-            db = torch.func.vmap(lambda dq: torch.func.jvp(
-                lie.quat_tangent, (q_unk,), (dq,))[1])(dq_dirs)
+            db = lie.rod_tangent_jvp(q_unk, dq_dirs)
         def own(d):   # zero tangents along the segment's own directions
             return q_unk.new_zeros((nq, b, d))
 
@@ -437,13 +483,13 @@ def solve_segmented_statics(tip_force, tip_moment=(0.0, 0.0, 0.0),
                             cfg: SegmentedStaticsConfig = SegmentedStaticsConfig(),
                             qe0=None, tol: float = 1e-9, max_iter: int = 30,
                             damping: float = 1.0, iters: int = 24,
-                            method: str = "picard") -> SegmentedStaticsSolution:
+                            method: str = "picard", tension=None) -> SegmentedStaticsSolution:
     """Per-sample Newton on :func:`segmented_equilibrium_residual`, the
-    Jacobian from ``torch.func.jacfwd`` through the chained torch solves.
+    Jacobian from ``torch.func`` jvps through the chained torch solves.
 
     ``tip_force (..., 3)``: each sample iterates until its own residual norm
     is ``<= tol`` or it has taken ``max_iter`` steps (a sample that is done
-    stops moving).
+    stops moving).  ``tension (..., K)`` actuates ``cfg.tendons``.
     """
     rods = cfg.rods
     s_count = rods.num_segments
@@ -460,7 +506,7 @@ def solve_segmented_statics(tip_force, tip_moment=(0.0, 0.0, 0.0),
 
     def residual(q):
         r = segmented_equilibrium_residual(q.reshape(q.shape[:-1] + (s_count, nq)),
-                                           tip_force, tip_moment, cfg, iters, method)
+                                           tip_force, tip_moment, cfg, iters, method, tension)
         return r.reshape(r.shape[:-2] + (flat,))
 
     res = residual(qe)

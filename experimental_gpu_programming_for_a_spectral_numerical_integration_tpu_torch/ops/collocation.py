@@ -231,8 +231,37 @@ def solve_ivp_picard_implicit(grid: SpectralGrid, m_blocks: torch.Tensor,
     unrolled iteration: a tangent costs one more Picard solve,
     ``dx = solve(m, drhs + dM_hat x)``, and a cotangent one transposed
     solve.  Works under ``torch.func.jvp``, ``vmap``, ``jacfwd`` and
-    ``torch.autograd.grad``."""
+    ``torch.autograd.grad``, and any nesting of them with at most one
+    forward-mode level: torch runs a Function's ``jvp`` rule with forward-mode
+    AD off, so a jvp of a jvp (``jacfwd(jacfwd(...))``) would get a zero
+    second-order tangent, and raises instead."""
+    if _forward_levels(m_blocks, rhs) > 1:
+        raise RuntimeError(
+            "solve_ivp_picard_implicit under nested forward-mode transforms (a torch.func.jvp "
+            "of a jvp, jacfwd of jacfwd) would return a zero second-order tangent; take the "
+            "outer or the inner derivative in reverse mode (jacfwd(jacrev(f)), jacrev(jacrev(f)))")
     return _PicardImplicit.apply(m_blocks, rhs, grid, iters)
+
+
+def _forward_levels(*tensors: torch.Tensor) -> int:
+    """At how many live ``torch.func`` forward-mode (jvp) levels ``tensors``
+    carry a tangent.  A jvp pushed while forward-mode AD was off (inside a
+    Function's jvp rule, which runs with it off) makes the levels below it
+    dead: their tangents do not flow through it."""
+    ft = torch._C._functorch
+    live = set()
+    for interp in reversed(ft.get_interpreter_stack() or ()):
+        if interp.key() == ft.TransformType.Jvp:
+            live.add(interp.level())
+            if not ft.CJvpInterpreterPtr(interp).prevFwdGradMode():
+                break
+    seen = set()
+    for t in tensors:
+        while (level := ft.maybe_get_level(t)) != -1:
+            if level in live:
+                seen.add(level)
+            t = ft.get_unwrapped(t)
+    return len(seen)
 
 
 def _residual_f64(grid: SpectralGrid, x: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

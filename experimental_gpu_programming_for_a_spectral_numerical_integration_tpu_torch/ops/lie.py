@@ -18,6 +18,7 @@ __all__ = [
     "quat_to_rot",
     "quat_tangent",
     "rod_tangent",
+    "rod_tangent_jvp",
     "cross",
     "quat_rotate_normalized",
     "quat_rotate_inv_normalized",
@@ -113,6 +114,41 @@ def rod_tangent(q: torch.Tensor, gamma: torch.Tensor | None = None) -> torch.Ten
     e1 = torch.zeros_like(gamma)
     e1[..., 0] = 1.0
     return torch.einsum("...ij,...j->...i", quat_to_rot(q), e1 + gamma)
+
+
+def _quat_tangent_jvp(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    dw, dx, dy, dz = dq[..., 0], dq[..., 1], dq[..., 2], dq[..., 3]
+    return torch.stack([-4.0 * (y * dy + z * dz),
+                        2.0 * (dx * y + x * dy + dw * z + w * dz),
+                        2.0 * (dx * z + x * dz - dw * y - w * dy)], dim=-1)
+
+
+def _quat_to_rot_jvp(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    dw, dx, dy, dz = dq[..., 0], dq[..., 1], dq[..., 2], dq[..., 3]
+    dxy, dxz, dyz = dx * y + x * dy, dx * z + x * dz, dy * z + y * dz
+    dwx, dwy, dwz = dw * x + w * dx, dw * y + w * dy, dw * z + w * dz
+    rows = [
+        torch.stack([-4.0 * (y * dy + z * dz), 2.0 * (dxy - dwz), 2.0 * (dxz + dwy)], dim=-1),
+        torch.stack([2.0 * (dxy + dwz), -4.0 * (x * dx + z * dz), 2.0 * (dyz - dwx)], dim=-1),
+        torch.stack([2.0 * (dxz - dwy), 2.0 * (dyz + dwx), -4.0 * (x * dx + y * dy)], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rod_tangent_jvp(q: torch.Tensor, dq: torch.Tensor, gamma: torch.Tensor | None = None,
+                    dgamma: torch.Tensor | None = None) -> torch.Tensor:
+    """The derivative of :func:`rod_tangent` at ``(q, gamma)`` along ``(dq,
+    dgamma)``, written out: plain products, so it costs no forward-mode
+    transform (``torch.func.jvp`` of the same function gives the same
+    tangent)."""
+    if gamma is None:
+        return _quat_tangent_jvp(q, dq)
+    e1 = torch.zeros_like(gamma)
+    e1[..., 0] = 1.0
+    return (torch.einsum("...ij,...j->...i", _quat_to_rot_jvp(q, dq), e1 + gamma)
+            + torch.einsum("...ij,...j->...i", quat_to_rot(q), dgamma))
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

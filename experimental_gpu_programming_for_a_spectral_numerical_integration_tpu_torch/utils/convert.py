@@ -8,9 +8,12 @@ are.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..models import dynamics, magnetics, tendon
 from ..models.bifurcation import CriticalPoint
 from ..models.cosserat import ContinuationPath, StaticsConfig
 from ..models.rod import RodConfig
@@ -20,7 +23,8 @@ from ..ops.collocation import SpectralGrid
 from ..ops.device import canonical_device
 
 __all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_config_from_jax",
-           "segmented_statics_config_from_jax", "grid_from_numpy", "continuation_path_from_jax",
+           "segmented_statics_config_from_jax", "tendon_from_jax", "magnet_from_jax",
+           "dynamics_config_from_jax", "grid_from_numpy", "continuation_path_from_jax",
            "critical_point_from_jax"]
 
 
@@ -54,14 +58,59 @@ def segmented_rod_config_from_jax(cfg) -> SegmentedRodConfig:
     return SegmentedRodConfig(segments=tuple(rod_config_from_jax(s) for s in cfg.segments))
 
 
+def tendon_from_jax(t) -> tendon.Tendon:
+    """The port's :class:`~..models.tendon.Tendon` from any object with the
+    JAX ``Tendon``'s fields (``fn`` and ``profile`` are host callables,
+    carried as they are)."""
+    return tendon.Tendon(offset=_floats(t.offset), helix=_floats(t.helix), fn=t.fn,
+                         profile=t.profile, capstan=float(t.capstan))
+
+
+def magnet_from_jax(m) -> magnetics.Magnet:
+    """The port's :class:`~..models.magnetics.Magnet` from any object with
+    the JAX ``Magnet``'s fields ``moment`` and ``fn``."""
+    return magnetics.Magnet(moment=_floats(m.moment), fn=m.fn)
+
+
 def segmented_statics_config_from_jax(cfg) -> SegmentedStaticsConfig:
     """The port's :class:`SegmentedStaticsConfig` from any object with the
     JAX ``SegmentedStaticsConfig``'s fields ``rods``, ``stiffness``,
-    ``kappa0``, ``follower`` and ``tendons`` (tendons raise
-    ``NotImplementedError`` in the port)."""
-    return SegmentedStaticsConfig(rods=segmented_rod_config_from_jax(cfg.rods),
-                                  stiffness=_floats(cfg.stiffness), kappa0=_floats(cfg.kappa0),
-                                  follower=bool(cfg.follower), tendons=tuple(cfg.tendons))
+    ``kappa0``, ``follower``, ``tendons`` and ``tendon_end``."""
+    return SegmentedStaticsConfig(
+        rods=segmented_rod_config_from_jax(cfg.rods), stiffness=_floats(cfg.stiffness),
+        kappa0=_floats(cfg.kappa0), follower=bool(cfg.follower),
+        tendons=tuple(tendon_from_jax(t) for t in cfg.tendons),
+        tendon_end=None if cfg.tendon_end is None else tuple(int(e) for e in cfg.tendon_end))
+
+
+def _obstacle_from_jax(ob):
+    """The port's obstacle of the same class name and fields."""
+    cls = getattr(dynamics, type(ob).__name__)
+    return cls(**{f.name: (_floats(getattr(ob, f.name)) if isinstance(getattr(ob, f.name), tuple)
+                           else getattr(ob, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def dynamics_config_from_jax(cfg) -> dynamics.DynamicsConfig:
+    """The port's :class:`~..models.dynamics.DynamicsConfig` from any object
+    with the JAX ``DynamicsConfig``'s fields: the statics configuration,
+    ``rho_a``, ``rho_i``, ``damping``, ``kv_damping``, ``gravity``, the
+    obstacles (``contact``), ``tendons``, ``magnets`` and ``fluid_drag``.  A
+    segmented one raises ``NotImplementedError`` (not ported yet)."""
+    if type(cfg).__name__ != "DynamicsConfig":
+        raise NotImplementedError(f"{type(cfg).__name__} is not ported yet: ROADMAP.md "
+                                  "Queue 1 item 5")
+    contact = cfg.contact
+    if contact is not None:
+        contact = (tuple(_obstacle_from_jax(ob) for ob in contact) if isinstance(contact, tuple)
+                   else _obstacle_from_jax(contact))
+    return dynamics.DynamicsConfig(
+        statics=statics_config_from_jax(cfg.statics), rho_a=float(cfg.rho_a),
+        rho_i=float(cfg.rho_i), damping=float(cfg.damping), kv_damping=float(cfg.kv_damping),
+        gravity=_floats(cfg.gravity), contact=contact,
+        tendons=tuple(tendon_from_jax(t) for t in cfg.tendons),
+        magnets=tuple(magnet_from_jax(m) for m in cfg.magnets),
+        fluid_drag=_floats(cfg.fluid_drag))
 
 
 def grid_from_numpy(points, dn, dn_nn, dn_in, ginv, device=None) -> SpectralGrid:

@@ -1,6 +1,7 @@
 """On-card checks of the CUDA kernels against their plain versions: K1-K5
-narrow and wide, and the statics Newtons (single rod and segmented) and the
-FP64 statics residual on K3 that run on them.
+narrow and wide, and the statics Newtons (single rod and segmented), the
+FP64 statics residual on K3, and the dynamics layer's fused mass lane (K1 +
+K2) that run on them.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -8,15 +9,20 @@ so on a machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     cosserat,
+    dynamics,
+    magnetics,
     rod,
     segment_statics,
     segments,
+    tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
     doubledouble as dd,
@@ -334,3 +340,94 @@ def test_dd_newton_rod_outside_k3_domain_is_not_converged(cuda):
     keep = expect.nonzero()[:, 0]
     torch.testing.assert_close(sol.qe[keep], clean.qe[keep], rtol=0, atol=0)
     torch.testing.assert_close(sol.qe_lo[keep], clean.qe_lo[keep], rtol=0, atol=0)
+
+
+def _dyn_cfg(n):
+    return dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=n)),
+                                   rho_a=1.0, rho_i=1e-2)
+
+
+@pytest.mark.parametrize("n,b", [(16, 1001), (64, 33)])
+def test_mass_matrix_fused_matches_mass_matrix(cuda, n, b):
+    """The fused mass lane on K1 + K2 (wide at n=64) against ``mass_matrix``
+    on the card (tests/test_mass_fused.py:33-36), one launch of each."""
+    cfg = _dyn_cfg(n)
+    qe = torch.tensor(0.5 * np.random.default_rng(n).standard_normal((b, 9)), device=cuda)
+    k1, k2 = ((rk.rod_shape_fused, rk.picard_correction_fused) if n <= 33
+              else (rk.rod_shape_fused_wide, rk.picard_correction_fused_wide))
+    before = (k1.launches, k2.launches)
+    m_f = dynamics.mass_matrix_fused(qe, cfg, iters=20)
+    assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
+    ref = dynamics.mass_matrix(qe, cfg, iters=20)
+    assert float((torch.linalg.matrix_norm(m_f - ref) / torch.linalg.matrix_norm(ref)).max()) < 2e-3
+    assert float((m_f - m_f.transpose(-1, -2)).abs().max()) < 1e-6
+    assert float(torch.linalg.eigvalsh(m_f).min()) > 0.0
+
+
+def test_rk4_fused_tier_matches_default(cuda):
+    """tests/test_mass_fused.py:55-68 on the card: 12 steps, one K1 and one K2
+    launch per RK4 stage."""
+    qe0 = torch.zeros((8, 9), dtype=torch.float64, device=cuda)
+    qe0[:, 4] = 0.25
+    qe0[1, 2] = 0.1
+    kw = dict(dt=0.004, steps=12, iters=14, record_energy=False)
+    ref = dynamics.simulate(qe0, torch.zeros_like(qe0), _dyn_cfg(16), **kw)
+    before = rk.rod_shape_fused.launches
+    fus = dynamics.simulate(qe0, torch.zeros_like(qe0), _dyn_cfg(16), mass_tier="fused", **kw)
+    assert rk.rod_shape_fused.launches == before + 48
+    torch.testing.assert_close(fus.qes, ref.qes, atol=5e-4, rtol=0)
+    torch.testing.assert_close(fus.qds, ref.qds, atol=5e-3, rtol=0)
+
+
+def _host_syncs(fn):
+    """``(fn(), the host syncs torch's sync debug mode saw in it)``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("tier", ["xla", "fused"])
+def test_simulate_constant_loads_make_no_host_sync_per_step(cuda, tier):
+    """Constant loads given as host data (tuples, lists, numpy) are copied to
+    the card once per call, so the RK4 loop, the energy record included,
+    makes no host sync: three steps sync as often as one."""
+    cfg = dynamics.DynamicsConfig(
+        statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16)), rho_a=1.0, rho_i=1e-2,
+        gravity=(0.0, 0.0, -9.81), tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.05)),),
+        magnets=(magnetics.Magnet(moment=(1.0, 0.0, 0.0)),))
+    qe0 = torch.tensor(0.2 * np.random.default_rng(9).standard_normal((8, 9)), device=cuda)
+    loads = dict(tip_force=(0.0, 0.0, -0.1), tip_moment=[0.01, 0.0, 0.0],
+                 base_accel=np.array([0.0, 0.1, 0.0]), tension=(0.5,),
+                 b_field=((0.0, 0.0, 0.01), 1e-3 * np.eye(3)))
+
+    def run(steps):
+        return dynamics.simulate(qe0, torch.zeros_like(qe0), cfg, dt=0.002, steps=steps,
+                                 iters=12, mass_tier=tier, **loads)
+
+    run(1)                                      # fills the caches
+    _, once = _host_syncs(lambda: run(1))
+    traj, thrice = _host_syncs(lambda: run(3))
+    assert thrice == once                       # the loads are copied once per call
+    assert traj.qes.shape == (3, 8, 9)
+    assert bool(torch.isfinite(traj.qes).all() & torch.isfinite(traj.energies).all())
+
+
+def test_actuated_statics_closed_form(cuda):
+    """tests/test_tendon.py:32-46 on the card: one tendon at offset delta,
+    kappa_y = -T delta / EI_y at rtol 1e-8 for 64 tensions."""
+    cfg = dynamics.DynamicsConfig(
+        statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16), stiffness=(1.0, 2.0, 1.0)),
+        tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.05)),))
+    t = torch.tensor(np.random.default_rng(6).uniform(0.1, 2.0, (64, 1)), device=cuda)
+    sol = dynamics.solve_contact_statics(cfg, qe0=torch.zeros((64, 9), dtype=torch.float64,
+                                                              device=cuda), tension=t, tol=1e-11)
+    assert sol.converged.all()
+    kappa = rod.curvature_at_points(cfg.rod, sol.qe)
+    torch.testing.assert_close(kappa[..., 1], (-t * 0.05 / 2.0).expand(64, 15), rtol=1e-8, atol=0)
+    assert float(kappa[..., [0, 2]].abs().max()) < 1e-9

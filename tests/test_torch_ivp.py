@@ -167,3 +167,27 @@ def test_constants_first_built_inside_jacfwd():
     jac = torch.func.jacfwd(lambda q: rod.rod_shape(q, cfg=cfg, method="picard").positions)(qe)
     again = rod.rod_shape(qe, cfg=cfg, method="picard").positions
     assert jac.shape == (18, 3, 9) and torch.isfinite(jac).all() and torch.isfinite(again).all()
+
+
+def test_implicit_picard_nested_forward_mode_raises():
+    """A jvp of a jvp through the solve would get a zero second-order tangent
+    (torch runs a Function's jvp rule with forward-mode AD off), so it
+    raises; a second derivative with a reverse-mode level agrees with the
+    central difference of the first."""
+    m, rhs, _, dm, g = (torch.tensor(a[0]) for a in _inputs())
+
+    def f(s):
+        return torch.sum(g * _solve(m + s * dm, rhs))
+
+    s0, one = torch.tensor(0.0, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="nested forward-mode"):
+        torch.func.jvp(lambda s: torch.func.jvp(f, (s,), (one,))[1], (s0,), (one,))
+    with pytest.raises(RuntimeError, match="nested forward-mode"):
+        torch.func.jacfwd(torch.func.jacfwd(f))(s0)
+    h = 1e-4
+    fd = (torch.func.jvp(f, (s0 + h,), (one,))[1] - torch.func.jvp(f, (s0 - h,), (one,))[1]) / (2 * h)
+    for d2 in (torch.func.jacfwd(torch.func.jacrev(f))(s0),
+               torch.func.jacrev(torch.func.jacfwd(f))(s0),
+               torch.func.jacrev(torch.func.jacrev(f))(s0)):
+        assert abs(float(fd)) > 1e-3
+        np.testing.assert_allclose(float(d2), float(fd), rtol=1e-6)

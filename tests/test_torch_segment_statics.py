@@ -27,6 +27,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     rod,
     segment_statics as ss,
     segments,
+    tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
@@ -172,6 +173,8 @@ def test_dd_residual_and_newton():
 
 
 def test_converters_round_trip_and_tendons_raise():
+    """The converters carry every field, routed tendons and their anchors
+    (``tendon_end``) included: tendons no longer raise."""
     jcfg = JCFGS["follower_kappa0"]
     cfg = convert.segmented_statics_config_from_jax(jcfg)
     assert cfg == ss.SegmentedStaticsConfig(
@@ -185,6 +188,11 @@ def test_converters_round_trip_and_tendons_raise():
         np.testing.assert_array_equal(mine, theirs)
     with_tendon = jss.SegmentedStaticsConfig(
         rods=jseg.uniform_segments(2, n=14, ne=4),
-        tendons=(jtendon.Tendon(offset=(0.0, 0.0, 0.05)),), tendon_end=(0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.segmented_statics_config_from_jax(with_tendon)
+        tendons=(jtendon.Tendon(offset=(0.0, 0.0, 0.05)),
+                 jtendon.Tendon(helix=(0.03, 1.0, 0.2), capstan=0.5)), tendon_end=(0, 1))
+    cfg = convert.segmented_statics_config_from_jax(with_tendon)
+    assert cfg == ss.SegmentedStaticsConfig(
+        rods=segments.uniform_segments(2, n=14, ne=4),
+        tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.05)),
+                 tendon.Tendon(helix=(0.03, 1.0, 0.2), capstan=0.5)), tendon_end=(0, 1))
+    assert cfg.tendon_last_segment == with_tendon.tendon_last_segment == (0, 1)
