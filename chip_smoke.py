@@ -43,6 +43,20 @@ which raises on failure (exit code != 0, no result lines):
    over 64 reachable targets (tip error < 1e-6); RK4 in both tiers under
    every load given as host data makes no host sync per step (torch's sync
    debug mode);
+4d. the rest of the dynamics layer, plain torch on the card (no kernel; 0
+   launches expected and printed per call): implicit Newmark
+   ``simulate_implicit`` (B=2048, 20 steps, within 5e-4 of RK4 at dt/4 on
+   64 rods, energy drift < 1e-3; the stiff case at 50x RK4's step, energy
+   under 2x its start), one host sync per Newton convergence test; the
+   rod-rod scene ``simulate_scene`` (R=128, broad phase budget 6, no
+   overflow, energy within 5e-4, no host sync per step; budget R-2 equals
+   all pairs at R=8) and the rod-on-rod scene statics; the spectra
+   (``natural_frequencies`` against the cantilever series, Beck's column,
+   Floquet multipliers against exp(lambda T), ``critical_load`` at pi^2/4);
+   segmented dynamics 3 x n=16 (B=2048 RK4 and Newmark energy drifts, the
+   frequencies against the series); each call timed (CUDA events), the
+   Newmark Jacobian's reverse and forward modes, and a profiler breakdown
+   of four calls;
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -64,6 +78,7 @@ result line.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import time
@@ -920,8 +935,6 @@ def dynamics_inputs(dev):
     (seed 2, bench.py:293-295) for the three-tendon and (seed 6) the
     one-tendon batch; IK targets the tips of equilibria at tensions
     U(0, 3) (seed 8)."""
-    head = 0.8 * np.random.default_rng(0).standard_normal((B_REAL, 9))
-    head[0] = rod.demo_qe(torch.float64, "cpu").numpy()
     rng6 = np.random.default_rng(4)
     return dict(
         mass16=torch.tensor(0.5 * np.random.default_rng(3).standard_normal((B_MASS16, 9)),
@@ -931,12 +944,19 @@ def dynamics_inputs(dev):
                            device=dev),
         mass64=torch.tensor(0.5 * np.random.default_rng(5).standard_normal((B_MASS64, 9)),
                             device=dev),
-        qe_dyn=torch.tensor(0.3 * head[:B_DYN], dtype=torch.float32, device=dev),
+        qe_dyn=rk4_strains(dev),
         tension=torch.tensor(np.random.default_rng(2).uniform(0.0, 2.0, (B_ACT, 3)),
                              dtype=torch.float32, device=dev),
         tension1=torch.tensor(np.random.default_rng(6).uniform(0.0, 2.0, (B_ACT, 1)), device=dev),
         targets=ik_targets(torch.tensor(np.random.default_rng(8).uniform(0.0, 3.0, (B_IK, 3)),
                                         device=dev)))
+
+
+def rk4_strains(dev):
+    """0.3 x the headline's first B_DYN strains, f32 (bench.py:251-260)."""
+    head = 0.8 * np.random.default_rng(0).standard_normal((B_REAL, 9))
+    head[0] = rod.demo_qe(torch.float64, "cpu").numpy()
+    return torch.tensor(0.3 * head[:B_DYN], dtype=torch.float32, device=dev)
 
 
 def rk4(qe0, tier: str):
@@ -1131,6 +1151,368 @@ def phase_dynamics_layer_timing(dev: torch.device, card: str) -> None:
           f"{prof['events']:.0f} device events per call [{card}]")
     for name, ms, count in prof["top"]:
         print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
+# Phase 4d, the rest of the dynamics layer: plain torch on the card (no
+# kernel), at the main path's width N=16, na=3, ne=3 (nq=9), f64 unless
+# stated.  The gates are the JAX tests', cited per constant.
+B_NM, NM_STEPS, NM_DT, NM_TOL = 2048, 20, 2e-3, 1e-9   # tests/test_dynamics.py:105-122
+B_NM_REF, NM_GAP, NM_DRIFT = 64, 5e-4, 1e-3
+STIFF_STEPS, STIFF_GROWTH = 25, 2.0                    # tests/test_dynamics.py:124-147
+R_SCENE, SCENE_STEPS, SCENE_DT, SCENE_DRIFT = 128, 10, 0.004, 5e-4  # test_broadphase.py:133-151
+R_PAIRS = 8                                            # tests/test_broadphase.py:41-54
+B_SEG_DYN, SEG_STEPS, SEG_DT, SEG_DRIFT = 2048, 25, 5e-4, 1e-4    # test_segment_dynamics.py:35-44
+SEG_NM_STEPS, SEG_NM_DT, SEG_NM_DRIFT = 4, 0.02, 1e-2              # test_segment_dynamics.py:47-57
+FLOQUET_PERIOD = 0.025                                 # tests/test_floquet.py:27 at a tenth
+EB = (1.875104 ** 2, 4.694091 ** 2)                    # tests/test_dynamics.py:14-25
+STIFF_CFG = dynamics.DynamicsConfig(statics=S16, rho_a=1.0, rho_i=1e-4)
+SCENE_RR = dynamics.RodRodContact(radius=0.08, stiffness=100.0, smoothing=5e-3, budget=6)
+PAIR_RR = dynamics.RodRodContact(radius=0.05, stiffness=2e3, smoothing=2e-3)   # :730-758
+PAIR_BASES = np.array([[0.0, 0.0, 0.0], [0.0, 0.08, 0.0]])
+EB_CFG = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16, ne=5)),
+                                 rho_a=1.0, rho_i=1e-4)
+BECK_CFG = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+    rod=rod.RodConfig(n=14, ne=5), follower=True), rho_a=1.0, rho_i=1e-4)   # :893-917
+FLOQUET_CFG = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+    rod=rod.RodConfig(n=8, ne=2)), rho_a=1.0, rho_i=1e-2, damping=0.5, kv_damping=2e-3)
+EULER_CFG = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+    rod=rod.RodConfig(n=12, ne=4)), rho_a=1.0, rho_i=1e-4)   # :942-953
+SEG_CFG = dynamics.SegmentedDynamicsConfig(
+    statics=segment_statics.SegmentedStaticsConfig(rods=segments.uniform_segments(3, n=16, ne=3)),
+    rho_a=1.0, rho_i=1e-3)
+SEG_EB_CFG = dynamics.SegmentedDynamicsConfig(statics=SEG_CFG.statics, rho_a=1.0, rho_i=1e-4)
+
+
+def rest_inputs(dev):
+    """Newmark: B_NM_REF rods of the test's state (tests/test_dynamics.py:110:
+    the constant k_y mode bent), qe_4 ~ U(0.25, 0.35) (seed 14), then phase
+    4c's RK4 strains (0.3 x the headline's), at rest, f64;
+    the stiff case about the test's state (qe_4 = 0.3, torsion rate 0.1),
+    qe_4 ~ U(0.25, 0.35) and the rate ~ U(0.05, 0.15) (seed 13): from the
+    RK4 strains, or the test's state plus 0.02 N(0,1), some rods' Newton
+    fails at this dt and their energy blows up, in the JAX package too
+    (PERF.md); the scene 0.2 N(0,1) on bases 0.12 apart (seed 5);
+    the segmented rods bent as the test's (tests/test_segment_dynamics.py:38:
+    the first two segments' constant k_y), k_y ~ U(0.25, 0.35) and
+    U(0.15, 0.25) (seed 7)."""
+    qe = rk4_strains(dev).double()
+    qe[:B_NM_REF] = 0.0
+    qe[:B_NM_REF, 4] = torch.tensor(np.random.default_rng(14).uniform(0.25, 0.35, B_NM_REF),
+                                    device=dev)
+    rng = np.random.default_rng(13)
+    qe_stiff = torch.zeros_like(qe)
+    qe_stiff[:, 4] = torch.tensor(rng.uniform(0.25, 0.35, B_NM), device=dev)
+    qd_stiff = torch.zeros_like(qe)
+    qd_stiff[:, 0] = torch.tensor(rng.uniform(0.05, 0.15, B_NM), device=dev)
+    base = torch.zeros((R_SCENE, 3), dtype=torch.float64, device=dev)
+    base[:, 1] = 0.12 * torch.arange(R_SCENE, dtype=torch.float64, device=dev)
+    seg = torch.zeros((B_SEG_DYN, SEG_CFG.nq), dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(7)
+    seg[:, 3] = torch.tensor(rng.uniform(0.25, 0.35, B_SEG_DYN), device=dev)
+    seg[:, 12] = torch.tensor(rng.uniform(0.15, 0.25, B_SEG_DYN), device=dev)
+    w_max = float(dynamics.natural_frequencies(STIFF_CFG, torch.zeros(9, dtype=torch.float64,
+                                                                       device=dev)).max())
+    return dict(
+        qe=qe, qe_stiff=qe_stiff, qd_stiff=qd_stiff, dt_stiff=50 * 2.8 / w_max,
+        scene=torch.tensor(0.2 * np.random.default_rng(5).standard_normal((R_SCENE, 9)),
+                           device=dev), base=base, seg=seg)
+
+
+def rest_calls(inp):
+    """Each call of phase 4d: (callable, its check)."""
+    dev = inp["qe"].device
+    z = lambda cfg: torch.zeros(cfg.nq, dtype=torch.float64, device=dev)  # noqa: E731
+    d = torch.tensor([-1.0, 0.0, 0.0], dtype=torch.float64, device=dev)
+    qe, seg = inp["qe"], inp["seg"]
+    return {
+        f"Newmark B={B_NM} {NM_STEPS} steps": (lambda: dynamics.simulate_implicit(
+            qe, torch.zeros_like(qe), DYN_CFG, dt=NM_DT, steps=NM_STEPS, tol=NM_TOL),
+            lambda tr: check_newmark(qe, tr)),
+        f"Newmark stiff B={B_NM} {STIFF_STEPS} steps": (lambda: dynamics.simulate_implicit(
+            inp["qe_stiff"], inp["qd_stiff"], STIFF_CFG, dt=inp["dt_stiff"], steps=STIFF_STEPS,
+            tol=NM_TOL),
+            check_stiff),
+        f"simulate_scene R={R_SCENE} budget {SCENE_RR.budget} {SCENE_STEPS} steps": (
+            lambda: dynamics.simulate_scene(inp["scene"], torch.zeros_like(inp["scene"]), DYN_CFG,
+                                            SCENE_RR, inp["base"], dt=SCENE_DT, steps=SCENE_STEPS),
+            lambda tr: check_scene(inp, tr)),
+        "scene statics rod on rod": (lambda: dynamics.solve_contact_statics(
+            DYN_CFG, qe0=torch.zeros((2, 9), dtype=torch.float64, device=dev), rr=PAIR_RR,
+            base_positions=PAIR_BASES, tol=1e-10, max_iter=60), check_pair_statics),
+        "natural_frequencies n=16 ne=5": (lambda: dynamics.natural_frequencies(EB_CFG, z(EB_CFG)),
+                                          lambda f: check_series("single rod", f)),
+        "Beck column n=14 ne=5": (lambda: [dynamics.linearized_spectrum(
+            BECK_CFG, z(BECK_CFG), tip_force=p * d, symmetric=False) for p in (19.5, 21.0)],
+            check_beck),
+        "floquet_multipliers n=8 ne=2": (lambda: floquet(z(FLOQUET_CFG)), check_floquet),
+        "critical_load Euler n=12 ne=4": (lambda: dynamics.critical_load(
+            EULER_CFG, direction=d, load_hi=5.0, bisect_tol=0.02), check_euler),
+        f"segmented RK4 3 x n=16 B={B_SEG_DYN} {SEG_STEPS} steps": (lambda: dynamics.simulate(
+            seg, torch.zeros_like(seg), SEG_CFG, dt=SEG_DT, steps=SEG_STEPS),
+            lambda tr: check_drift("segmented RK4", tr, SEG_DRIFT)),
+        f"segmented Newmark 3 x n=16 B={B_SEG_DYN} {SEG_NM_STEPS} steps": (
+            lambda: dynamics.simulate_implicit(seg, torch.zeros_like(seg), SEG_CFG, dt=SEG_NM_DT,
+                                               steps=SEG_NM_STEPS, iters=12, tol=NM_TOL),
+            lambda tr: check_drift("segmented Newmark", tr, SEG_NM_DRIFT)),
+        "segmented natural_frequencies 3 x n=16": (
+            lambda: dynamics.natural_frequencies(SEG_EB_CFG, z(SEG_EB_CFG)),
+            lambda f: check_series("segmented", f)),
+    }
+
+
+def floquet(qe0):
+    """tests/test_floquet.py:14-36 over FLOQUET_PERIOD (the test's 0.25 took
+    56.7 s on the card: 95 RK4 steps under jacrev; this one 10), at its dt
+    |lambda|_max <= 0.15."""
+    poles = dynamics.damped_spectrum(FLOQUET_CFG, qe0)
+    steps = int(np.ceil(FLOQUET_PERIOD * float(np.abs(poles).max()) / 0.15))
+    return poles, dynamics.floquet_multipliers(FLOQUET_CFG, FLOQUET_PERIOD, steps, qe0=qe0)
+
+
+def check_newmark(qe, tr) -> None:
+    """Gate 1: the test's B_NM_REF rods within NM_GAP of RK4 at dt/4; gate 2:
+    every rod's energy within NM_DRIFT of its first step's.  The next
+    B_NM_REF rods, from the headline's strains, run beside them against
+    RK4 ungated: they excite the torsion branch, where the trapezoidal
+    rule's O((omega dt)^2) phase error at this dt is above NM_GAP."""
+    two = 2 * B_NM_REF
+    ref = dynamics.simulate(qe[:two], torch.zeros_like(qe[:two]), DYN_CFG,
+                            dt=NM_DT / 4, steps=4 * NM_STEPS, record_energy=False)
+    gaps = (tr.qes[-1, :two] - ref.qes[-1]).abs().amax(-1)
+    gap, gap_head = float(gaps[:B_NM_REF].max()), float(gaps[B_NM_REF:].max())
+    moved = [float((tr.qes[-1, rows] - qe[rows]).abs().max())
+             for rows in (slice(0, B_NM_REF), slice(B_NM_REF, None))]
+    drift = float(((tr.energies[-1] - tr.energies[0]) / tr.energies[0]).abs().max())
+    print(f"    Newmark vs RK4 at dt/4: the test's {B_NM_REF} rods max |qe| {gap:.3e} (bound "
+          f"{NM_GAP:.0e}), moved {moved[0]:.3e}; {B_NM_REF} headline rods max |qe| "
+          f"{gap_head:.3e} (ungated), moved {moved[1]:.3e}; worst relative energy drift of all "
+          f"{B_NM} {drift:.3e} (bound {NM_DRIFT:.0e})")
+    if not (tr.qes.shape == (NM_STEPS, B_NM, 9) and gap < NM_GAP and drift < NM_DRIFT):
+        raise AssertionError("Newmark: outside tests/test_dynamics.py:105-122")
+
+
+def check_stiff(tr) -> None:
+    e = tr.energies
+    growth = float((e[-1] / e[0]).max())
+    print(f"    stiff Newmark: energies finite {bool(torch.isfinite(e).all())}, worst e[-1]/e[0] "
+          f"{growth:.4f} (bound {STIFF_GROWTH})")
+    if not (bool(torch.isfinite(e).all()) and growth < STIFF_GROWTH):
+        raise AssertionError("stiff Newmark: outside tests/test_dynamics.py:124-147")
+
+
+def check_scene(inp, tr) -> None:
+    """No overflow at the start or the end, the energy within SCENE_DRIFT,
+    and budget R-2 against all pairs at R=8 (rtol 1e-12)."""
+    r0 = dynamics._scene_positions(inp["scene"], DYN_CFG, inp["base"], 16)
+    r1 = dynamics._scene_positions(tr.qes[-1], DYN_CFG, inp["base"], 16)
+    overflow = bool(SCENE_RR.broadphase_overflow(r0)) or bool(SCENE_RR.broadphase_overflow(r1))
+    e = tr.energies
+    drift = float((e[-1] - e[0]).abs() / max(float(e[0].abs()), 1.0))
+    w_q = DYN_CFG.quad_weights_full
+    dense, full = (float(dataclasses.replace(SCENE_RR, budget=b).pair_potential(r0[:R_PAIRS], w_q))
+                   for b in (None, R_PAIRS - 2))
+    rel = abs(full - dense) / dense
+    print(f"    scene: overflow {overflow}; energy {float(e[0]):.6f} -> {float(e[-1]):.6f}, drift "
+          f"{drift:.3e} (bound {SCENE_DRIFT:.0e}); budget R-2 vs all pairs at R={R_PAIRS}: "
+          f"potential {dense:.6e}, relative gap {rel:.3e} (bound 1e-12)")
+    if overflow or not (drift < SCENE_DRIFT and dense > 0.0 and rel < 1e-12):
+        raise AssertionError("scene: outside tests/test_broadphase.py's gates")
+
+
+def check_pair_statics(sol) -> None:
+    """tests/test_dynamics.py:730-758 at N=16."""
+    r = dynamics._scene_positions(sol.qe, DYN_CFG, PAIR_BASES, 24)
+    tip_sep = float(torch.linalg.vector_norm(r[0, 0] - r[1, 0]))
+    qdd = float(dynamics.scene_accelerations(sol.qe, torch.zeros_like(sol.qe), DYN_CFG, PAIR_RR,
+                                             PAIR_BASES).abs().max())
+    om2 = dynamics.linearized_spectrum(DYN_CFG, qe=sol.qe, rr=PAIR_RR, base_positions=PAIR_BASES)
+    print(f"    rod on rod: converged {bool(sol.converged)} in {int(sol.iterations)} steps, tip "
+          f"separation {tip_sep:.4f} (in (0.11, 0.15)), max |qdd| {qdd:.3e} (bound 1e-7), "
+          f"smallest scene omega^2 {om2[0]:.4f} (> 0)")
+    if not (bool(sol.converged) and 0.11 < tip_sep < 0.15 and qdd < 1e-7 and om2[0] > 0):
+        raise AssertionError("scene statics: outside tests/test_dynamics.py:730-758")
+
+
+def check_series(what: str, freqs) -> None:
+    f = np.sort(freqs)
+    rel = [abs(f[i] / EB[i // 2] - 1.0) for i in range(4 if what == "single rod" else 3)]
+    print(f"    {what} natural frequencies {f[:4].round(6).tolist()}: relative gaps to the "
+          f"cantilever series {np.round(rel, 6).tolist()} (bounds 2e-3, 2e-3, 5e-3, 5e-3)")
+    if not all(r < b for r, b in zip(rel, (2e-3, 2e-3, 5e-3, 5e-3))):
+        raise AssertionError(f"{what}: off the Euler-Bernoulli series")
+
+
+def check_beck(spectra) -> None:
+    lo, hi = spectra
+    print(f"    Beck: P=19.5 max |Im| {np.max(np.abs(lo.imag)):.3e}, min Re {np.min(lo.real):.4f}; "
+          f"P=21 max |Im| {np.max(np.abs(hi.imag)):.4f} (> 10), min Re {np.min(hi.real):.4f}")
+    if not (np.max(np.abs(lo.imag)) < 1e-6 * np.max(np.abs(lo.real)) and np.min(lo.real) > 0
+            and np.max(np.abs(hi.imag)) > 10.0 and np.min(hi.real) > 0):
+        raise AssertionError("Beck column: outside tests/test_dynamics.py:893-917")
+
+
+def check_floquet(out) -> None:
+    poles, mus = out
+    expected = np.exp(poles * FLOQUET_PERIOD)
+    gap = max(float(np.min(np.abs(a[:, None] - b[None, :]) / (1e-8 + np.abs(a)[:, None]), axis=1)
+                    .max()) for a, b in ((mus, expected), (expected, mus)))
+    print(f"    Floquet: max |mu| {np.abs(mus).max():.6f} (< 1); worst relative gap to "
+          f"exp(lambda T) {gap:.3e} (bound 2e-4)")
+    if not (mus.shape == expected.shape and gap < 2e-4 and np.abs(mus).max() < 1.0):
+        raise AssertionError("Floquet: outside tests/test_floquet.py:14-36")
+
+
+def check_euler(p) -> None:
+    rel = abs(p / (np.pi ** 2 / 4.0) - 1.0)
+    print(f"    critical_load dead load: {p:.6f} against pi^2/4, relative gap {rel:.3e} "
+          "(bound 1e-2)")
+    if not rel < 1e-2:
+        raise AssertionError("critical_load: outside tests/test_dynamics.py:942-953")
+
+
+def check_drift(what: str, tr, bound: float) -> None:
+    e = tr.energies
+    drift = float(((e[-1] - e[0]) / e[0]).abs().max())
+    print(f"    {what}: finite {bool(torch.isfinite(e).all())}, worst relative energy drift "
+          f"{drift:.3e} (bound {bound:.0e})")
+    if not (bool(torch.isfinite(e).all()) and drift < bound):
+        raise AssertionError(f"{what}: outside tests/test_segment_dynamics.py's gate")
+
+
+def newton_iterates(fn):
+    """``(fn(), the Newton iterates of simulate_implicit in it)``: its steps
+    go through ``cosserat._newton_step``, counted here."""
+    count = [0]
+    newton_step = cosserat._newton_step
+
+    def counted(jac, res):
+        count[0] += 1
+        return newton_step(jac, res)
+
+    cosserat._newton_step = counted
+    try:
+        return fn(), count[0]
+    finally:
+        cosserat._newton_step = newton_step
+
+
+def check_rest_syncs(inp) -> None:
+    """Newmark: one host sync per Newton convergence test (each iterate's
+    and each step's first), none else per step; simulate_scene: none per
+    step.  One step against three under torch's sync debug mode."""
+    qe = inp["qe"]
+
+    def newmark(steps):
+        return host_syncs(lambda: newton_iterates(lambda: dynamics.simulate_implicit(
+            qe, torch.zeros_like(qe), DYN_CFG, dt=NM_DT, steps=steps, tol=NM_TOL)))
+
+    (_, it1), syncs1 = newmark(1)
+    (_, it3), syncs3 = newmark(3)
+    print(f"    Newmark B={B_NM}: host syncs {syncs1} in 1 step ({it1} Newton iterates), {syncs3} "
+          f"in 3 ({it3}); expected {syncs1} + {it3 - it1} + 2")
+    if syncs3 - syncs1 != (it3 - it1) + 2:
+        raise AssertionError("Newmark: host syncs other than one per Newton test")
+
+    def scene(steps):
+        return host_syncs(lambda: dynamics.simulate_scene(
+            inp["scene"], torch.zeros_like(inp["scene"]), DYN_CFG, SCENE_RR,
+            inp["base"].cpu().numpy(), dt=SCENE_DT, steps=steps))[1]
+
+    once, thrice = scene(1), scene(3)
+    print(f"    simulate_scene R={R_SCENE}, bases as host data: host syncs {once} in 1 step, "
+          f"{thrice} in 3")
+    if once != thrice:
+        raise AssertionError("simulate_scene: a host sync per step")
+
+
+def phase_rest_of_dynamics(dev, card: str, launches: dict) -> None:
+    """Phase 4d: each call with the launch counts set to 0 around it (0
+    expected: no kernel on these paths), its gates, its time (CUDA events:
+    a call over 10 s is timed once, as its gated call, to keep the phase
+    near its budget; a shorter one by the median of 3 after the gated call
+    as warm-up), the host-sync counts, each Jacobian's two modes, and a
+    profiler breakdown of four calls at a few steps."""
+    inp = rest_inputs(dev)
+    for what, (fn, check) in rest_calls(inp).items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out, counts = counted(what, fn, ())
+        end.record()
+        end.synchronize()
+        add_counts(launches, counts)
+        check(out)
+        ms, how = start.elapsed_time(end), "the gated call, timed once"
+        if ms <= 10e3:
+            ms, how = cuda_time_ms(fn, warmup=0, reps=3), "median of 3 after the gated call"
+        print(f"    {what}: {ms:.4f} ms per call ({how}; launches {counts or 0}) [{card}]")
+    check_rest_syncs(inp)
+    jacobian_modes(inp, card)
+    qe, seg = inp["qe"], inp["seg"]
+    profiled = {
+        f"Newmark B={B_NM} 2 steps": lambda: dynamics.simulate_implicit(
+            qe, torch.zeros_like(qe), DYN_CFG, dt=NM_DT, steps=2, tol=NM_TOL),
+        f"simulate_scene R={R_SCENE} 2 steps": lambda: dynamics.simulate_scene(
+            inp["scene"], torch.zeros_like(inp["scene"]), DYN_CFG, SCENE_RR, inp["base"],
+            dt=SCENE_DT, steps=2),
+        f"segmented RK4 B={B_SEG_DYN} 2 steps": lambda: dynamics.simulate(
+            seg, torch.zeros_like(seg), SEG_CFG, dt=SEG_DT, steps=2),
+        "critical_load Euler": lambda: dynamics.critical_load(
+            EULER_CFG, direction=torch.tensor([-1.0, 0.0, 0.0], dtype=torch.float64, device=dev),
+            load_hi=5.0, bisect_tol=0.02),
+    }
+    for what, fn in profiled.items():
+        prof = device_breakdown(fn, warmup=0, reps=1)
+        print(f"  profile {what}: host {prof['host_ms']:.4f} ms per call, device busy "
+              f"{prof['device_ms']:.4f} ms, idle {prof['idle']:.1%}, {prof['events']:.0f} "
+              f"device events per call [{card}]")
+        for name, ms, count in prof["top"][:4]:
+            print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
+def jacobian_modes(inp, card: str) -> None:
+    """Each Jacobian of this layer two ways, the same matrix: the Newmark
+    step's per-sample Jacobian at B=2048 by forward-mode columns
+    (``cosserat._per_sample_jacobian``, what ``simulate_implicit`` runs) and
+    by reverse-mode rows; the monodromy over 3 RK4 steps by
+    ``torch.func.jacrev`` (what ``floquet_multipliers`` runs) and by
+    ``jacfwd``."""
+    qe = inp["qe"]
+    a0 = dynamics.accelerations(qe, torch.zeros_like(qe), DYN_CFG)
+    inv = 1.0 / (0.25 * NM_DT * NM_DT)
+
+    def residual(q1):
+        a1 = (q1 - qe) * inv - a0
+        v1 = 0.5 * NM_DT * (a0 + a1)
+        m, rhs = dynamics._mass_and_rhs(q1, v1, DYN_CFG)
+        return torch.einsum("...ij,...j->...i", m, a1) - rhs
+
+    def rows(q):
+        _, pull = torch.func.vjp(residual, q)
+        eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+        return torch.movedim(torch.func.vmap(lambda e: pull(e.expand(q.shape))[0])(eye), 0, -2)
+
+    nq = FLOQUET_CFG.nq
+
+    def flow(z):
+        traj = dynamics.simulate(z[:nq], z[nq:], FLOQUET_CFG, dt=0.25 / 95, steps=3,
+                                 record_energy=False)
+        return torch.cat([traj.qes[-1], traj.qds[-1]])
+
+    z0 = torch.zeros(2 * nq, dtype=torch.float64, device=qe.device)
+    for what, (port, other) in {
+            f"Newmark Jacobian B={B_NM}": (lambda: cosserat._per_sample_jacobian(residual, qe),
+                                           lambda: rows(qe)),
+            "monodromy n=8 ne=2, 3 RK4 steps": (lambda: torch.func.jacrev(flow)(z0),
+                                                lambda: torch.func.jacfwd(flow)(z0))}.items():
+        a, b = port(), other()
+        gap = float((a - b).abs().max() / b.abs().max())
+        ms_port, ms_other = (cuda_time_ms(f, warmup=0, reps=3) for f in (port, other))
+        modes = ("forward columns", "reverse rows") if "Newmark" in what else ("jacrev", "jacfwd")
+        print(f"    {what}: {modes[0]} (the port's) {ms_port:.4f} ms, {modes[1]} "
+              f"{ms_other:.4f} ms, relative gap {gap:.3e} [{card}]")
+        if not gap < 1e-10:
+            raise AssertionError(f"{what}: the two modes disagree")
 
 
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
@@ -1422,6 +1804,8 @@ def main() -> None:
     phase_statics_layer(dev, launches)
     print("== 4c. the dynamics layer")
     phase_dynamics_layer(dev, launches)
+    print("== 4d. the rest of the dynamics layer (plain torch, no kernel)")
+    phase_rest_of_dynamics(dev, card, launches)
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)

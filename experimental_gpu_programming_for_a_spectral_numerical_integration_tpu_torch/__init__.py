@@ -13,9 +13,11 @@ load and arc-length continuation, host and batched); the bifurcation
 tools (``models/bifurcation.py``); the multi-segment rod chains and
 their statics Newton (routed tendons included); tendon and magnetic
 actuation (``models/tendon.py``, ``models/magnetics.py``) and the
-single-rod Lagrangian dynamics (``models/dynamics.py``: the mass matrix,
-also from K1 + K2, RK4 ``simulate``, and the damped-Newton contact and
-actuated statics with tendon inverse kinematics).  It runs on the card
+Lagrangian dynamics (``models/dynamics.py``: the mass matrix, also from
+K1 + K2, RK4 ``simulate`` and implicit Newmark ``simulate_implicit``, the
+damped-Newton contact and actuated statics with tendon inverse kinematics,
+rod-rod scenes with a top-k broad phase, segmented rods, and the spectrum
+and stability tools).  It runs on the card
 unless the caller passes CPU tensors or ``device='cpu'``
 (``ops/device.py``).  It imports torch and numpy, never jax.
 
@@ -64,14 +66,27 @@ from .models.dynamics import (  # noqa: E402
     ContactSphere,
     ContactStaticsSolution,
     DynamicsConfig,
+    RodRodContact,
+    SegmentedDynamicsConfig,
     Trajectory,
     accelerations,
+    critical_load,
     damped_newton,
+    damped_spectrum,
+    floquet_multipliers,
+    frequency_response,
     kinetic_energy,
+    linearized_spectrum,
     mass_matrix,
     mass_matrix_fused,
+    natural_frequencies,
+    parametric_stability_map,
     potential_energy,
+    scene_accelerations,
+    scene_energy,
     simulate,
+    simulate_implicit,
+    simulate_scene,
     solve_contact_statics,
     total_energy,
 )
@@ -174,6 +189,19 @@ __all__ = [
     "total_energy",
     "accelerations",
     "simulate",
+    "simulate_implicit",
     "damped_newton",
     "solve_contact_statics",
+    "SegmentedDynamicsConfig",
+    "RodRodContact",
+    "scene_energy",
+    "scene_accelerations",
+    "simulate_scene",
+    "natural_frequencies",
+    "linearized_spectrum",
+    "damped_spectrum",
+    "frequency_response",
+    "critical_load",
+    "floquet_multipliers",
+    "parametric_stability_map",
 ]

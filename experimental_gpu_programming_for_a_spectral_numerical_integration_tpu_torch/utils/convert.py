@@ -24,8 +24,8 @@ from ..ops.device import canonical_device
 
 __all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_config_from_jax",
            "segmented_statics_config_from_jax", "tendon_from_jax", "magnet_from_jax",
-           "dynamics_config_from_jax", "grid_from_numpy", "continuation_path_from_jax",
-           "critical_point_from_jax"]
+           "dynamics_config_from_jax", "rod_rod_contact_from_jax", "grid_from_numpy",
+           "continuation_path_from_jax", "critical_point_from_jax"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -96,21 +96,33 @@ def dynamics_config_from_jax(cfg) -> dynamics.DynamicsConfig:
     with the JAX ``DynamicsConfig``'s fields: the statics configuration,
     ``rho_a``, ``rho_i``, ``damping``, ``kv_damping``, ``gravity``, the
     obstacles (``contact``), ``tendons``, ``magnets`` and ``fluid_drag``.  A
-    segmented one raises ``NotImplementedError`` (not ported yet)."""
-    if type(cfg).__name__ != "DynamicsConfig":
-        raise NotImplementedError(f"{type(cfg).__name__} is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 5")
+    JAX ``SegmentedDynamicsConfig`` becomes the port's, its segmented
+    statics configuration carried by :func:`segmented_statics_config_from_jax`."""
+    segmented = type(cfg).__name__ == "SegmentedDynamicsConfig"
     contact = cfg.contact
     if contact is not None:
         contact = (tuple(_obstacle_from_jax(ob) for ob in contact) if isinstance(contact, tuple)
                    else _obstacle_from_jax(contact))
-    return dynamics.DynamicsConfig(
-        statics=statics_config_from_jax(cfg.statics), rho_a=float(cfg.rho_a),
+    cls = dynamics.SegmentedDynamicsConfig if segmented else dynamics.DynamicsConfig
+    statics = (segmented_statics_config_from_jax if segmented else statics_config_from_jax)(
+        cfg.statics)
+    return cls(
+        statics=statics, rho_a=float(cfg.rho_a),
         rho_i=float(cfg.rho_i), damping=float(cfg.damping), kv_damping=float(cfg.kv_damping),
         gravity=_floats(cfg.gravity), contact=contact,
         tendons=tuple(tendon_from_jax(t) for t in cfg.tendons),
         magnets=tuple(magnet_from_jax(m) for m in cfg.magnets),
         fluid_drag=_floats(cfg.fluid_drag))
+
+
+def rod_rod_contact_from_jax(rr) -> dynamics.RodRodContact:
+    """The port's :class:`~..models.dynamics.RodRodContact` from any object
+    with the JAX ``RodRodContact``'s fields."""
+    return dynamics.RodRodContact(
+        radius=float(rr.radius), stiffness=float(rr.stiffness), smoothing=float(rr.smoothing),
+        self_window=None if rr.self_window is None else float(rr.self_window),
+        friction=float(rr.friction), friction_vel=float(rr.friction_vel),
+        budget=None if rr.budget is None else int(rr.budget))
 
 
 def grid_from_numpy(points, dn, dn_nn, dn_in, ginv, device=None) -> SpectralGrid:

@@ -28,7 +28,6 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     cosserat,
     dynamics,
     rod,
-    segment_statics,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     convert,
@@ -209,8 +208,9 @@ def test_floor_drape_converges_with_line_search():
 
 def test_config_round_trip_and_unported_paths_raise():
     """``dynamics_config_from_jax`` carries every field and the host tables
-    agree; segmented dynamics and rod-rod scenes raise, naming the ROADMAP
-    item."""
+    agree, for the single-rod config, a ``SegmentedDynamicsConfig`` with
+    tendons (mirrored from its statics config) and a ``RodRodContact``; the
+    segmented config has no single rod, as in the JAX package."""
     cfg = convert.dynamics_config_from_jax(JCFG)
     assert cfg.contact[2] == dynamics.ContactCylinder(
         point=(0.5, 0.0, -0.4), axis=(0.0, 1.0, 0.2), radius=0.3, stiffness=1e3, smoothing=1e-2,
@@ -225,13 +225,31 @@ def test_config_round_trip_and_unported_paths_raise():
                          (cfg.kappa0_modes, JCFG.kappa0_modes)):
         np.testing.assert_array_equal(mine, theirs)
     jseg_cfg = jdyn.SegmentedDynamicsConfig(
-        statics=jss.SegmentedStaticsConfig(rods=jseg.uniform_segments(2, n=8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.dynamics_config_from_jax(jseg_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dynamics.DynamicsConfig(statics=segment_statics.SegmentedStaticsConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dynamics.solve_contact_statics(cfg, qe0=torch.zeros(9), rr=object())
+        statics=jss.SegmentedStaticsConfig(
+            rods=jseg.uniform_segments(2, n=8), stiffness=((1.0, 2.0, 1.5), (1.0, 1.0, 1.0)),
+            tendons=(jten.Tendon(offset=(0.0, 0.0, 0.05)), jten.Tendon(helix=(0.04, 1.0, 0.3))),
+            tendon_end=(0, 1)),
+        rho_i=1e-2, damping=0.1, gravity=(0.0, 0.0, -1.0))
+    seg = convert.dynamics_config_from_jax(jseg_cfg)
+    assert type(seg) is dynamics.SegmentedDynamicsConfig and seg.nq == jseg_cfg.nq == 18
+    assert seg.tendons == seg.statics.tendons and len(seg.tendons) == 2
+    assert seg.statics.tendon_last_segment == (0, 1)
+    assert (seg.rho_i, seg.damping, seg.gravity) == (1e-2, 0.1, (0.0, 0.0, -1.0))
+    for mine, theirs in ((seg.k_ee, jseg_cfg.k_ee), (seg.quad_weights_full,
+                                                     jseg_cfg.quad_weights_full),
+                         (seg.points_full, jseg_cfg.points_full),
+                         (seg.kappa0_modes, jseg_cfg.kappa0_modes)):
+        np.testing.assert_array_equal(mine, theirs)
+    with pytest.raises(AttributeError, match="no single rod"):
+        seg.rod
+    jrr = jdyn.RodRodContact(radius=0.06, stiffness=30.0, smoothing=5e-3, self_window=0.3,
+                             friction=0.4, friction_vel=0.01, budget=3)
+    assert convert.rod_rod_contact_from_jax(jrr) == dynamics.RodRodContact(
+        radius=0.06, stiffness=30.0, smoothing=5e-3, self_window=0.3, friction=0.4,
+        friction_vel=0.01, budget=3)
+    assert convert.rod_rod_contact_from_jax(jdyn.RodRodContact()) == dynamics.RodRodContact()
+    with pytest.raises(ValueError, match="explicit qe0"):
+        dynamics.solve_contact_statics(cfg, rr=dynamics.RodRodContact())
 
 
 def test_mass_matrix_fused_is_forward_only():

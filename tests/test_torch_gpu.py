@@ -1,7 +1,10 @@
 """On-card checks of the CUDA kernels against their plain versions: K1-K5
 narrow and wide, and the statics Newtons (single rod and segmented), the
 FP64 statics residual on K3, and the dynamics layer's fused mass lane (K1 +
-K2) that run on them.
+K2) that run on them; and, with no kernel, the layers that run plain torch
+on the card: implicit Newmark (its host syncs), the rod-rod broad phase and
+scenes, segmented dynamics, and the nested-forward-mode guard of the
+implicit Picard solve under the card's torch.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -25,6 +28,8 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    chebyshev,
+    collocation as coll,
     doubledouble as dd,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
@@ -431,3 +436,137 @@ def test_actuated_statics_closed_form(cuda):
     kappa = rod.curvature_at_points(cfg.rod, sol.qe)
     torch.testing.assert_close(kappa[..., 1], (-t * 0.05 / 2.0).expand(64, 15), rtol=1e-8, atol=0)
     assert float(kappa[..., [0, 2]].abs().max()) < 1e-9
+
+
+def test_implicit_picard_nested_forward_mode_raises(cuda):
+    """tests/test_torch_ivp.py::test_implicit_picard_nested_forward_mode_raises
+    on CUDA tensors: a jvp of a jvp and jacfwd of jacfwd through the solve
+    raise (the guard reads torch's private functorch state), and the three
+    second derivatives with a reverse-mode level agree with a central
+    difference of the first (rtol 1e-6)."""
+    n, d, iters = 10, 4, 16
+    rng = np.random.default_rng(0)
+    m = torch.tensor(0.5 * rng.standard_normal((n - 1, d, d)), device=cuda)
+    rhs = torch.tensor(rng.standard_normal((n - 1, d)), device=cuda)
+    dm = torch.tensor(rng.standard_normal((n - 1, d, d)), device=cuda)
+    g = torch.tensor(rng.standard_normal((n - 1, d)), device=cuda)
+    grid = coll.make_grid(n, device=cuda)
+
+    def f(s):
+        return torch.sum(g * coll.solve_ivp_picard_implicit(grid, m + s * dm, rhs, iters))
+
+    s0 = torch.tensor(0.0, dtype=torch.float64, device=cuda)
+    one = torch.tensor(1.0, dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="nested forward-mode"):
+        torch.func.jvp(lambda s: torch.func.jvp(f, (s,), (one,))[1], (s0,), (one,))
+    with pytest.raises(RuntimeError, match="nested forward-mode"):
+        torch.func.jacfwd(torch.func.jacfwd(f))(s0)
+    h = 1e-4
+    fd = (torch.func.jvp(f, (s0 + h,), (one,))[1]
+          - torch.func.jvp(f, (s0 - h,), (one,))[1]) / (2 * h)
+    assert abs(float(fd)) > 1e-3
+    for d2 in (torch.func.jacfwd(torch.func.jacrev(f))(s0),
+               torch.func.jacrev(torch.func.jacfwd(f))(s0),
+               torch.func.jacrev(torch.func.jacrev(f))(s0)):
+        np.testing.assert_allclose(float(d2), float(fd), rtol=1e-6)
+
+
+def test_newmark_syncs_once_per_newton_iterate(cuda, monkeypatch):
+    """``simulate_implicit`` on the card, B=8, constant loads given as host
+    data: one host sync per Newton convergence test (each iterate's and each
+    step's first) and no other per step; within 5e-4 of RK4 at dt/4
+    (tests/test_dynamics.py:105-122)."""
+    cfg = dynamics.DynamicsConfig(
+        statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16)), rho_a=1.0, rho_i=1e-2,
+        gravity=(0.0, 0.0, -1.0), tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.05)),))
+    qe0 = torch.tensor(0.2 * np.random.default_rng(11).standard_normal((8, 9)), device=cuda)
+    loads = dict(tip_force=(0.0, 0.0, -0.1), tension=(0.5,))
+    counts = [0]
+    newton_step = cosserat._newton_step
+
+    def counted(jac, res):
+        counts[0] += 1
+        return newton_step(jac, res)
+
+    monkeypatch.setattr(cosserat, "_newton_step", counted)
+
+    def run(steps):
+        counts[0] = 0
+        traj, syncs = _host_syncs(lambda: dynamics.simulate_implicit(
+            qe0, torch.zeros_like(qe0), cfg, dt=2e-3, steps=steps, tol=1e-9, **loads))
+        return traj, syncs, counts[0]
+
+    run(1)                                      # fills the caches
+    _, syncs1, newton1 = run(1)
+    traj, syncs3, newton3 = run(3)
+    assert syncs3 - syncs1 == (newton3 - newton1) + 2, (syncs1, newton1, syncs3, newton3)
+    ref = dynamics.simulate(qe0, torch.zeros_like(qe0), cfg, dt=5e-4, steps=12,
+                            record_energy=False, **loads)
+    torch.testing.assert_close(traj.qes[-1], ref.qes[-1], rtol=0, atol=5e-4)
+    assert bool(torch.isfinite(traj.energies).all())
+
+
+def test_broadphase_matches_all_pairs_and_scene_syncs_not(cuda):
+    """tests/test_broadphase.py:41-79 on the card at R=16, n=16: budget R-2
+    equals all pairs (rtol 1e-12), an adequate budget equals them in the
+    potential, its force and friction; a broad-phase ``simulate_scene``
+    makes no host sync per step."""
+    nr, n = 16, 16
+    cfg = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=n, ne=2)),
+                                  rho_i=1e-2)
+    qe = torch.tensor(0.4 * np.random.default_rng(0).standard_normal((nr, 6)), device=cuda)
+    base = torch.zeros((nr, 3), dtype=torch.float64, device=cuda)
+    base[:, 1] = 0.15 * torch.arange(nr, dtype=torch.float64, device=cuda)
+    r_all = dynamics._scene_positions(qe, cfg, base, 16)
+    w_q = torch.tensor(chebyshev.clenshaw_curtis_weights(n, 1.0), device=cuda)
+    kw = dict(radius=0.09, stiffness=50.0, smoothing=5e-3, friction=0.4)
+    dense = dynamics.RodRodContact(**kw)
+    v_d = float(dense.pair_potential(r_all, w_q))
+    assert v_d > 0.0
+    np.testing.assert_allclose(float(dynamics.RodRodContact(**kw, budget=nr - 2).pair_potential(
+        r_all, w_q)), v_d, rtol=1e-12)
+    bp = dynamics.RodRodContact(**kw, budget=4)
+    assert not bool(bp.broadphase_overflow(r_all, margin=0.0))
+    np.testing.assert_allclose(float(bp.pair_potential(r_all, w_q)), v_d, rtol=1e-10)
+    g_d, g_b = (torch.func.grad(lambda r: c.pair_potential(r, w_q))(r_all) for c in (dense, bp))
+    torch.testing.assert_close(g_b, g_d, rtol=1e-8, atol=1e-12)
+    v_all = torch.tensor(0.3 * np.random.default_rng(1).standard_normal(tuple(r_all.shape)),
+                         device=cuda)
+    torch.testing.assert_close(bp.friction_force(r_all, v_all, w_q),
+                               dense.friction_force(r_all, v_all, w_q), rtol=1e-8, atol=1e-12)
+
+    def run(steps):
+        return dynamics.simulate_scene(qe, torch.zeros_like(qe), cfg, bp, base.cpu().numpy(),
+                                       dt=0.004, steps=steps)
+
+    run(1)
+    _, once = _host_syncs(lambda: run(1))
+    traj, thrice = _host_syncs(lambda: run(3))
+    assert thrice == once
+    e = traj.energies
+    assert bool(torch.isfinite(traj.qes).all()) and float((e[-1] - e[0]).abs()) < 5e-4 * max(
+        float(e[0].abs()), 1.0)
+
+
+def test_segmented_mass_and_rhs_matches_cpu(cuda):
+    """The chained Euler-Lagrange assembly (a terminated tendon, gravity, a
+    tip wrench) on the card against the same call on the CPU, within
+    1e-10 max(1, |ref|)."""
+    cfg = dynamics.SegmentedDynamicsConfig(
+        statics=segment_statics.SegmentedStaticsConfig(
+            rods=segments.uniform_segments(3, n=12, ne=3),
+            tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.05)),
+                     tendon.Tendon(offset=(0.0, 0.03, 0.0), capstan=0.5)), tendon_end=(0, 2)),
+        rho_a=1.0, rho_i=1e-2, gravity=(0.0, 0.0, -1.0))
+    rng = np.random.default_rng(2)
+    args = [0.3 * rng.standard_normal((8, 27)), rng.standard_normal((8, 27)),
+            0.3 * rng.standard_normal((8, 3)), 0.1 * rng.standard_normal((8, 3)),
+            rng.uniform(0.0, 2.0, (8, 2))]
+
+    def call(device):
+        qe, qd, tf, tm, ten = (torch.tensor(a, device=device) for a in args)
+        return dynamics._mass_and_rhs(qe, qd, cfg, tf, 16, tm, tension=ten)
+
+    for mine, ref in zip(call(cuda), call("cpu")):
+        torch.testing.assert_close(mine.cpu(), ref, rtol=0,
+                                   atol=1e-10 * max(1.0, float(ref.abs().max())))
