@@ -57,6 +57,19 @@ which raises on failure (exit code != 0, no result lines):
    frequencies against the series); each call timed (CUDA events), the
    Newmark Jacobian's reverse and forward modes, and a profiler breakdown
    of four calls;
+4e. the inverse and constrained layers at N=16 (the platforms at n=12,
+   na=6): the fused ``sensing.measure`` (B=131072, markers and the tip
+   frame; exactly one K1 launch and no other kernel) against the f64
+   picard measure; ``fit_strain`` (B=4096) recovering noise-free strains,
+   ``posterior_covariance`` (B=4096), ``identify_tip_load`` (B=256); the
+   EKF and RTS smoother over 256 filters and 16 steps against the NEES and
+   NIS gates; the pinned-tip Newton (B=1024), a six-leg platform's
+   equilibria and stability over 64 wrenches, the portal's buckling load
+   against 2 pi^2 EI/L^2, platform IK (B=16); ``optimize_protocol`` (B=64,
+   5 Adam steps of 10 RK4 steps; ``mass_tier='fused'`` refused) and the
+   calibration trainer (B=4096, 20 steps); each call timed (CUDA events)
+   with its host syncs and launch counts, and a profiler breakdown of the
+   fused measure and of three ``fit_strain`` iterates;
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -90,12 +103,17 @@ import numpy as np
 import torch
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
+    calibration,
+    constrained,
+    control,
     cosserat,
     dynamics,
+    estimation,
     magnetics,
     rod,
     segment_statics,
     segments,
+    sensing,
     tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
@@ -1515,6 +1533,350 @@ def jacobian_modes(inp, card: str) -> None:
             raise AssertionError(f"{what}: the two modes disagree")
 
 
+# Phase 4e, the inverse and constrained layers, at the main path's width N=16
+# (the platforms at the JAX tests' n=12, na=6), f64 unless stated.  The gates
+# are the JAX tests', cited per constant.
+SENSE = dict(measure=131072, fit=4096, cov=4096, load=256, filters=256, tip=1024,
+             wrenches=64, ik=16, control=64, train=4096)
+SENSE_CFG = sensing.SensingConfig(use_tip_quaternion=True)         # markers 1/4 .. 1
+FIT_CFG = sensing.SensingConfig(marker_fracs=(), pose_fracs=(1 / 3, 2 / 3, 1.0))
+FIT_TOL, FIT_QE, FIT_RES = 1e-12, 1e-8, 1e-10             # tests/test_sensing.py:109-123
+LOAD_CFG = sensing.SensingConfig(marker_fracs=(0.5, 1.0))  # tests/test_sensing.py:216-233
+LOAD_TOL = 1e-5
+EKF_STEPS, EKF_TAIL = 16, 6       # tests/test_estimation.py:45-71 runs 30, tail from 10
+EKF_CFG = estimation.FilterConfig(
+    dynamics=dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+        rod=rod.RodConfig(n=16, ne=2)), rho_a=1.0, rho_i=1e-2),
+    sensing=sensing.SensingConfig(rod=rod.RodConfig(n=16, ne=2), marker_fracs=(),
+                                  pose_fracs=(0.5, 1.0)),
+    dt=0.01, q_accel=1e-10, r_sigma=1e-3)
+TIP_CFG = dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16, ne=4)))
+TIP_TOL = 1e-10                                         # tests/test_constrained.py:89-105
+QV = (float(np.sqrt(0.5)), 0.0, -float(np.sqrt(0.5)), 0.0)        # local e1 -> world z
+HEX_BASES = tuple((0.3 * np.cos(a), 0.3 * np.sin(a), 0.0) for a in np.arange(6) * np.pi / 3)
+HEX_EA = 100.0
+HEXAPOD = constrained.PlatformRobot(
+    cfg=dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+        rod=rod.RodConfig(n=12, ne=3, na=6), stiffness=(1.0, 1.0, 1.0, HEX_EA, 50.0, 50.0))),
+    base_positions=HEX_BASES, base_quaternions=(QV,) * 6, attach_points=HEX_BASES)
+PORTAL_BASES = ((-0.25, 0.0, 0.0), (0.25, 0.0, 0.0))      # tests/test_constrained.py:251-278
+PORTAL = constrained.PlatformRobot(
+    cfg=dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+        rod=rod.RodConfig(n=12, ne=4, na=6), stiffness=(1.0, 1.0, 50.0, 1e6, 1e4, 1e4))),
+    base_positions=PORTAL_BASES, base_quaternions=(QV,) * 2, attach_points=PORTAL_BASES)
+IK_BASES = tuple((0.25 * np.cos(a), 0.25 * np.sin(a), 0.0) for a in np.arange(3) * 2 * np.pi / 3)
+IK_ROBOT = constrained.PlatformRobot(                   # tests/test_constrained.py:281-300
+    cfg=dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+        rod=rod.RodConfig(n=12, ne=2, na=6), stiffness=(1.0, 1.0, 1.0, 100.0, 50.0, 50.0)),
+        tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.04)),)),
+    base_positions=IK_BASES, base_quaternions=(QV,) * 3, attach_points=IK_BASES)
+CONTROL_CFG = dynamics.DynamicsConfig(                  # tests/test_control.py:16-24 at n=16
+    statics=cosserat.StaticsConfig(rod=rod.RodConfig(n=16, ne=2)), rho_a=1.0, rho_i=1e-2,
+    damping=0.4, tendons=(tendon.Tendon(offset=(0.0, 0.0, 0.06)),
+                          tendon.Tendon(offset=(0.0, 0.0, -0.06))))
+CONTROL_STEPS, CONTROL_ITERATIONS = 10, 5
+TRAIN_STEPS = 20
+
+
+def sense_inputs(dev, sizes=SENSE):
+    """Phase 4e's inputs: sensing strains 0.8 N(0,1) (the headline's, seed
+    0), fit strains 0.6 N(0,1) (tests/test_sensing.py:155, seed 3), tip
+    loads 0.15 N(0,1) (:222, seed 11), filter priors about the test's state
+    (tests/test_estimation.py:34-41, seed 7), pin targets about the batched
+    test's three (tests/test_constrained.py:95-97, seed 9), platform
+    wrenches (seed 10; wrench 0 the uniform compression), IK tensions U(0,
+    1) (seed 12), control strains 0.05 N(0,1) (seed 13), calibration
+    features N(0,1) with targets from a hidden decoder (seed 14)."""
+    def t(a, dtype=torch.float64):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    nq_f = EKF_CFG.nq
+    x0_mean = np.zeros(2 * nq_f)
+    x0_mean[2], x0_mean[nq_f + 3] = 0.4, 0.3
+    rng = np.random.default_rng(7)
+    x0_true = x0_mean + 1e-2 * rng.standard_normal((sizes["filters"], 2 * nq_f))
+    rng = np.random.default_rng(9)
+    tips = np.stack([rng.uniform(0.93, 0.97, sizes["tip"]), rng.uniform(-0.08, 0.05, sizes["tip"]),
+                     rng.uniform(0.06, 0.18, sizes["tip"])], axis=-1)
+    rng = np.random.default_rng(10)
+    wrench = np.concatenate([0.1 * rng.standard_normal((sizes["wrenches"], 3)) - [0, 0, 0.3],
+                             0.02 * rng.standard_normal((sizes["wrenches"], 3))], axis=-1)
+    wrench[0] = [0.0, 0.0, -0.6, 0.0, 0.0, 0.0]
+    rng = np.random.default_rng(14)
+    feats = rng.standard_normal((sizes["train"], 8))
+    w_true = 0.2 * rng.standard_normal((8, 9))
+    sense = 0.8 * np.random.default_rng(0).standard_normal((sizes["measure"], 9))
+    return dict(
+        sense=t(sense), fit=t(0.6 * np.random.default_rng(3).standard_normal((sizes["fit"], 9))),
+        loads=t(0.15 * np.random.default_rng(11).standard_normal((sizes["load"], 3))),
+        x0_mean=t(x0_mean), x0_true=t(x0_true),
+        noise=torch.Generator(device=dev).manual_seed(7), tips=t(tips), wrench=t(wrench),
+        ik_tension=t(np.random.default_rng(12).uniform(0.0, 1.0, (sizes["ik"], 3, 1))),
+        control=t(0.05 * np.random.default_rng(13).standard_normal((sizes["control"], 6))),
+        feats=t(feats, torch.float32),
+        train_targets=rod.rod_shape(t(feats @ w_true, torch.float32), method="picard").tip_position)
+
+
+def sense_calls(inp, sizes=SENSE):
+    """Each call of phase 4e: (callable, kernels it must launch, its check)."""
+    dev = inp["sense"].device
+    b_fit, b_load = sizes["fit"], sizes["load"]
+    y_fit = sensing.measure(inp["fit"], FIT_CFG)
+    sc = cosserat.StaticsConfig(rod=LOAD_CFG.rod)
+    qe_star = cosserat.solve_statics(inp["loads"], torch.zeros_like(inp["loads"]), sc,
+                                     tol=1e-12).qe
+    y_load = sensing.measure(qe_star, LOAD_CFG)
+    truth = estimation.simulate_measurements(inp["x0_true"][:, :EKF_CFG.nq],
+                                             inp["x0_true"][:, EKF_CFG.nq:], EKF_CFG,
+                                             EKF_STEPS, inp["noise"])
+    ik_fwd = constrained.solve_platform(IK_ROBOT, tension=inp["ik_tension"], tol=1e-11)
+    if not bool(ik_fwd.converged.all()):
+        raise AssertionError("the IK targets' forward platform solves did not converge")
+    w_max = float(dynamics.natural_frequencies(CONTROL_CFG, torch.zeros(
+        CONTROL_CFG.nq, dtype=torch.float64, device=dev)).max())
+    control_dt = 1.0 / w_max                                    # tests/test_control.py:27-28
+    control_cost = control.tip_target_cost(CONTROL_CFG, (0.0, 0.0, -0.96), velocity_weight=1e-3)
+    return {
+        f"measure fused N=16 B={sizes['measure']}": (
+            lambda: sensing.measure(inp["sense"], dataclasses.replace(SENSE_CFG, method="fused")),
+            ("K1",), lambda y: check_fused_measure(inp, y)),
+        f"fit_strain pose stations B={b_fit}": (
+            lambda: sensing.fit_strain(y_fit, FIT_CFG, tol=FIT_TOL, max_iter=30), (),
+            lambda sol: check_fit(inp, sol)),
+        f"posterior_covariance B={sizes['cov']}": (
+            lambda: sensing.posterior_covariance(inp["fit"][:sizes["cov"]], FIT_CFG, 1e-5), (),
+            check_covariance),
+        f"identify_tip_load B={b_load}": (
+            lambda: sensing.identify_tip_load(y_load, LOAD_CFG, statics=sc, tol=1e-11,
+                                              max_iter=20, statics_tol=1e-11), (),
+            lambda out: check_loads(inp, out)),
+        f"ekf + rts_smoother N=16 B={sizes['filters']} {EKF_STEPS} steps": (
+            lambda: ekf_and_smoother(inp, truth[1]), (), lambda out: check_ekf(truth[0], out)),
+        f"solve_tip_constrained N=16 B={sizes['tip']}": (
+            lambda: constrained.solve_tip_constrained(TIP_CFG, tip_position=inp["tips"],
+                                                      tip_axes=(1, 2), tol=TIP_TOL),
+            (), lambda sol: check_pinned(inp, sol)),
+        f"solve_platform hexapod n=12 B={sizes['wrenches']}": (
+            lambda: constrained.solve_platform(HEXAPOD, platform_force=inp["wrench"][:, :3],
+                                               platform_moment=inp["wrench"][:, 3:], tol=1e-10),
+            (), check_hexapod),
+        f"platform_stability hexapod n=12 B={sizes['wrenches']}": (
+            lambda: constrained.platform_stability(
+                HEXAPOD, platform_force=inp["wrench"][:, :3],
+                platform_moment=inp["wrench"][:, 3:], tol=1e-10), (), check_hexapod_stability),
+        "platform_critical_load portal n=12, 9 bisection steps": (
+            lambda: constrained.platform_critical_load(
+                PORTAL, unit_force=(0.0, 0.0, -1.0), lam_lo=10.0, lam_hi=26.0, bisect_steps=9,
+                tol=1e-9, device=dev), (), check_portal),
+        f"platform_ik B={sizes['ik']}": (
+            lambda: constrained.platform_ik(IK_ROBOT, target_position=ik_fwd.platform_position,
+                                            gn_steps=8, tol=1e-11), (), check_ik),
+        f"optimize_protocol N=16 B={sizes['control']} {CONTROL_ITERATIONS} x {CONTROL_STEPS} "
+        "steps": (
+            lambda: control.optimize_protocol(
+                control_cost, torch.zeros((3, 2), dtype=torch.float64, device=dev), CONTROL_CFG,
+                control_dt, CONTROL_STEPS, transform=dynamics._softplus, qe0=inp["control"],
+                iterations=CONTROL_ITERATIONS, iters=10), (),
+            lambda sol: check_control(sol, control_cost, control_dt, inp)),
+        f"make_train_step B={sizes['train']} {TRAIN_STEPS} steps": (
+            lambda: train(inp), (), check_train),
+    }
+
+
+def check_fused_measure(inp, y) -> None:
+    """y finite, in the strains' dtype, within F32_TOL of the f64 picard
+    measurement (tests/test_pallas_kernel.py's 'high' gate)."""
+    ref = sensing.measure(inp["sense"], SENSE_CFG)
+    gap = float((y - ref).abs().max())
+    print(f"    fused vs f64 picard: max abs {gap:.3e} over {y.shape[0]} rods, "
+          f"{y.shape[1]} numbers each (bound {F32_TOL:.0e})")
+    if not (y.dtype == torch.float64 and bool(torch.isfinite(y).all()) and gap <= F32_TOL):
+        raise AssertionError("fused measure: outside the f32 gate of the picard measure")
+
+
+def check_fit(inp, sol) -> None:
+    err = float((sol.qe - inp["fit"]).abs().max())
+    res = float(sol.residual_norm.max())
+    print(f"    {int(sol.iterations)} iterates; max |qe - truth| {err:.3e} (bound {FIT_QE:.0e}), "
+          f"max residual {res:.3e} (bound {FIT_RES:.0e})")
+    if not (err < FIT_QE and res < FIT_RES):
+        raise AssertionError("fit_strain: outside tests/test_sensing.py:121-123")
+
+
+def check_covariance(cov) -> None:
+    sym = float((cov - cov.transpose(-1, -2)).abs().max() / cov.abs().max())
+    eig = torch.linalg.eigvalsh(0.5 * (cov + cov.transpose(-1, -2)))
+    print(f"    relative asymmetry {sym:.3e}; smallest eigenvalue {float(eig.min()):.3e}, "
+          f"largest {float(eig.max()):.3e}")
+    if not (bool(torch.isfinite(cov).all()) and sym < 1e-8 and float(eig.min()) > 0.0):
+        raise AssertionError("posterior_covariance: not a symmetric positive definite matrix")
+
+
+def check_loads(inp, out) -> None:
+    theta, sol = out
+    err = float((theta - inp["loads"]).abs().max())
+    print(f"    {int(sol.iterations)} iterates; max |theta - f| {err:.3e} (bound {LOAD_TOL:.0e})")
+    if not err < LOAD_TOL:
+        raise AssertionError("identify_tip_load: outside tests/test_sensing.py:231-233")
+
+
+def ekf_and_smoother(inp, ys):
+    d = 2 * EKF_CFG.nq
+    x0 = inp["x0_mean"].expand(inp["x0_true"].shape)
+    res = estimation.ekf(ys, EKF_CFG, x0, 1e-4 * torch.eye(d, dtype=torch.float64,
+                                                           device=x0.device))
+    return res, estimation.rts_smoother(res, EKF_CFG)
+
+
+def check_ekf(xs, out) -> None:
+    """tests/test_estimation.py:45-71: the tail's mean NEES within (0.3, 3)
+    of d and mean NIS within (0.3, 3) of m; the smoothed covariances
+    symmetric and PSD (:107-120), the smoother's RMSE printed beside the
+    filter's."""
+    res, (xs_s, ps_s) = out
+    d, m = xs.shape[-1], sensing.measurement_size(EKF_CFG.sensing)
+    e, p = (res.xs - xs)[EKF_TAIL:], res.covs[EKF_TAIL:]
+    nees = float(torch.einsum("sbi,sbi->sb", e, torch.linalg.solve(p, e[..., None])[..., 0])
+                 .mean())
+    nis = float(res.nis[EKF_TAIL:].mean())
+    rmse_f = float(((res.xs - xs) ** 2).mean().sqrt())
+    rmse_s = float(((xs_s - xs) ** 2).mean().sqrt())
+    sym = float((ps_s - ps_s.transpose(-1, -2)).abs().max())
+    low = float(torch.linalg.eigvalsh(ps_s).min())
+    print(f"    mean NEES {nees:.4f} (d = {d}, gate ({0.3 * d:.1f}, {3 * d:.1f})), mean NIS "
+          f"{nis:.4f} (m = {m}, gate ({0.3 * m:.1f}, {3 * m:.1f})); RMSE filter {rmse_f:.3e}, "
+          f"smoother {rmse_s:.3e}; smoothed covariances asymmetry {sym:.1e}, smallest "
+          f"eigenvalue {low:.1e}")
+    if not (0.3 * d < nees < 3.0 * d and 0.3 * m < nis < 3.0 * m and sym < 1e-10
+            and low > -1e-12):
+        raise AssertionError("ekf / rts_smoother: outside tests/test_estimation.py's gates")
+
+
+def check_pinned(inp, sol) -> None:
+    """tests/test_constrained.py:89-105: every sample converged, the tips on
+    their targets' transverse coordinates within 1e-9, and the balance
+    residual with the reaction as tip load below 1e-9."""
+    r = TIP_CFG.state_full(sol.qe, 16)[0]
+    miss = float((r[:, 0, 1:] - inp["tips"][:, 1:]).abs().max())
+    res = dynamics._balance_residual_fn(TIP_CFG, sol.reaction_force, None, 16)(sol.qe)
+    bal = float(torch.linalg.vector_norm(res, dim=-1).max())
+    conv = int(sol.converged.sum())
+    print(f"    {int(sol.iterations)} Newton steps, {conv}/{sol.qe.shape[0]} converged; tip miss "
+          f"{miss:.3e}, balance residual {bal:.3e} (bounds 1e-9)")
+    if not (conv == sol.qe.shape[0] and miss < 1e-9 and bal < 1e-9):
+        raise AssertionError("solve_tip_constrained: outside tests/test_constrained.py:98-105")
+
+
+def check_hexapod(sol) -> None:
+    """Every wrench converged; wrench 0, the uniform compression, sinks the
+    platform by F L / (6 EA) with each leg carrying F/6
+    (tests/test_constrained.py:136-158 with six legs)."""
+    conv = int(sol.converged.sum())
+    sink = float(sol.platform_position[0, 2]) - (1.0 - 0.6 / (6 * HEX_EA))
+    share = float((sol.reaction_force[0, :, 2] + 0.1).abs().max())
+    print(f"    {int(sol.iterations)} Newton steps, {conv}/{sol.qe.shape[0]} converged; "
+          f"compression: sink off by {sink:.3e}, leg force off by {share:.3e} (bounds 1e-10)")
+    if not (conv == sol.qe.shape[0] and abs(sink) < 1e-10 and share < 1e-10):
+        raise AssertionError("solve_platform: outside tests/test_constrained.py:148-158")
+
+
+def check_hexapod_stability(st) -> None:
+    check_hexapod(st.solution)
+    print(f"    eig_max from {float(st.eig_max.min()):.6f} to {float(st.eig_max.max()):.6f}; "
+          f"{int(st.stable.sum())}/{st.stable.shape[0]} stable")
+    if not bool(st.stable.all()):
+        raise AssertionError("platform_stability: a stable hexapod load read as unstable")
+
+
+def check_portal(lam) -> None:
+    want = 2.0 * np.pi ** 2
+    print(f"    lambda_cr {lam:.6f} against 2 pi^2 EI / L^2 = {want:.6f} (rtol 1e-2)")
+    if not abs(lam - want) < 1e-2 * want:
+        raise AssertionError("platform_critical_load: outside tests/test_constrained.py:277")
+
+
+def check_ik(ik) -> None:
+    err = float(ik.pose_error.max())
+    print(f"    max pose error {err:.3e} (bound 1e-6), min tension {float(ik.tension.min()):.3e}")
+    if not (err < 1e-6 and float(ik.tension.min()) >= 0.0):
+        raise AssertionError("platform_ik: outside tests/test_constrained.py:298-300")
+
+
+def check_control(sol, cost, dt, inp) -> None:
+    """The loss falls (tests/test_control.py:111-113); mass_tier='fused'
+    is refused before any rollout."""
+    losses = sol.losses.cpu().numpy()
+    print(f"    losses {losses.tolist()}, final gradient norm {float(sol.grad_norm):.3e}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("optimize_protocol: the loss did not fall")
+    try:
+        control.optimize_protocol(cost, sol.knots, CONTROL_CFG, dt, 1, qe0=inp["control"],
+                                  mass_tier="fused")
+    except ValueError as e:
+        print(f"    mass_tier='fused' refused: {e}")
+    else:
+        raise AssertionError("optimize_protocol accepted mass_tier='fused'")
+
+
+def train(inp):
+    cfg = rod.RodConfig()
+    params = calibration.init_params(8, cfg, device=inp["feats"].device)
+    step, make_opt = calibration.make_train_step(cfg=cfg)
+    opt = make_opt(params)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params, opt, loss = step(params, opt, inp["feats"], inp["train_targets"])
+        losses.append(loss)
+    return torch.stack(losses)
+
+
+def check_train(losses) -> None:
+    losses = losses.cpu().numpy()
+    print(f"    loss {losses[0]:.6e} -> {losses[-1]:.6e} over {len(losses)} Adam steps")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("make_train_step: the loss did not fall")
+
+
+def phase_inverse_layers(dev, card: str, launches: dict) -> None:
+    """Phase 4e: each call with the launch counts set to 0 around it (the
+    fused measure: exactly one K1 and no other kernel; the rest none), its
+    host syncs (torch's sync debug mode, on the gated call), its gate and
+    its CUDA-event time (the gated call; a call under 3 s also by the median
+    of 3 after it); a profiler breakdown of the fused measure and of three
+    fit_strain iterates."""
+    inp = sense_inputs(dev)
+    for what, (fn, needs, check) in sense_calls(inp).items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        (out, syncs), counts = counted(what, lambda: host_syncs(fn), needs)
+        end.record()
+        end.synchronize()
+        add_counts(launches, counts)
+        if needs and counts != {k: 1 for k in needs}:
+            raise AssertionError(f"{what}: launches {counts}, expected one of each of {needs}")
+        check(out)
+        ms, how = start.elapsed_time(end), "the gated call"
+        if ms <= 3e3:
+            ms, how = cuda_time_ms(fn, warmup=0, reps=3), "median of 3 after the gated call"
+        print(f"    {what}: {ms:.4f} ms per call ({how}); host syncs {syncs} in the gated call; "
+              f"launches {counts or 0} [{card}]")
+    y = sensing.measure(inp["fit"], FIT_CFG)
+    profiled = {
+        f"measure fused B={SENSE['measure']}": lambda: sensing.measure(
+            inp["sense"], dataclasses.replace(SENSE_CFG, method="fused")),
+        f"fit_strain B={SENSE['fit']}, 3 iterates": lambda: sensing.fit_strain(
+            y, FIT_CFG, tol=0.0, max_iter=3),
+    }
+    for what, fn in profiled.items():
+        prof = device_breakdown(fn, warmup=1, reps=3)
+        print(f"  profile {what}: host {prof['host_ms']:.4f} ms per call, device busy "
+              f"{prof['device_ms']:.4f} ms, idle {prof['idle']:.1%}, {prof['events']:.0f} "
+              f"device events per call [{card}]")
+        for name, ms, count in prof["top"][:4]:
+            print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
     """Least ms on the card and what bounds it: operations at the published
     peaks (an FMA is 2 FLOP) against bytes at the HBM rate.  ``mat_fma`` are
@@ -1806,6 +2168,8 @@ def main() -> None:
     phase_dynamics_layer(dev, launches)
     print("== 4d. the rest of the dynamics layer (plain torch, no kernel)")
     phase_rest_of_dynamics(dev, card, launches)
+    print("== 4e. the inverse and constrained layers (the fused measure on K1)")
+    phase_inverse_layers(dev, card, launches)
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)

@@ -17,7 +17,12 @@ Lagrangian dynamics (``models/dynamics.py``: the mass matrix, also from
 K1 + K2, RK4 ``simulate`` and implicit Newmark ``simulate_implicit``, the
 damped-Newton contact and actuated statics with tendon inverse kinematics,
 rod-rod scenes with a top-k broad phase, segmented rods, and the spectrum
-and stability tools).  It runs on the card
+and stability tools); the inverse and constrained layers on top:
+tip-constrained rods and parallel platforms (``models/constrained.py``),
+trajectory optimization (``models/control.py``), shape sensing and load
+identification (``models/sensing.py``, its fused measurement on K1), the
+EKF/RTS estimator (``models/estimation.py``) and calibration
+(``models/calibration.py``).  It runs on the card
 unless the caller passes CPU tensors or ``device='cpu'``
 (``ops/device.py``).  It imports torch and numpy, never jax.
 
@@ -44,6 +49,33 @@ from .models.bifurcation import (  # noqa: E402
     path_stability,
     switch_branch,
     switch_branch_batched,
+)
+from .models.calibration import (  # noqa: E402
+    CalibrationParams,
+    calibration_loss,
+    init_params,
+    make_train_step,
+    predict_tips,
+)
+from .models.constrained import (  # noqa: E402
+    PlatformIKSolution,
+    PlatformRobot,
+    PlatformSolution,
+    PlatformStability,
+    TipConstrainedSolution,
+    platform_critical_load,
+    platform_ik,
+    platform_stability,
+    solve_platform,
+    solve_tip_constrained,
+)
+from .models.control import (  # noqa: E402
+    ControlSolution,
+    optimize_protocol,
+    protocol_from_knots,
+    rollout,
+    tip_positions,
+    tip_target_cost,
 )
 from .models.cosserat import (  # noqa: E402
     BatchedContinuationPath,
@@ -90,6 +122,13 @@ from .models.dynamics import (  # noqa: E402
     solve_contact_statics,
     total_energy,
 )
+from .models.estimation import (  # noqa: E402
+    FilterConfig,
+    FilterResult,
+    ekf,
+    rts_smoother,
+    simulate_measurements,
+)
 from .models.magnetics import Magnet  # noqa: E402
 from .models.rod import (  # noqa: E402
     RodConfig,
@@ -100,7 +139,15 @@ from .models.rod import (  # noqa: E402
     rod_shape_refined_fused,
     split_strain,
 )
-
+from .models.sensing import (  # noqa: E402
+    SensingConfig,
+    SensingSolution,
+    fit_strain,
+    identify_tip_load,
+    measure,
+    measurement_size,
+    posterior_covariance,
+)
 from .models.segment_statics import (  # noqa: E402
     SegmentedStaticsConfig,
     SegmentedStaticsSolution,
@@ -204,4 +251,37 @@ __all__ = [
     "critical_load",
     "floquet_multipliers",
     "parametric_stability_map",
+    "TipConstrainedSolution",
+    "solve_tip_constrained",
+    "PlatformRobot",
+    "PlatformSolution",
+    "solve_platform",
+    "PlatformStability",
+    "platform_stability",
+    "platform_critical_load",
+    "PlatformIKSolution",
+    "platform_ik",
+    "protocol_from_knots",
+    "rollout",
+    "tip_positions",
+    "tip_target_cost",
+    "ControlSolution",
+    "optimize_protocol",
+    "SensingConfig",
+    "SensingSolution",
+    "measure",
+    "measurement_size",
+    "fit_strain",
+    "posterior_covariance",
+    "identify_tip_load",
+    "FilterConfig",
+    "FilterResult",
+    "ekf",
+    "rts_smoother",
+    "simulate_measurements",
+    "CalibrationParams",
+    "init_params",
+    "predict_tips",
+    "calibration_loss",
+    "make_train_step",
 ]

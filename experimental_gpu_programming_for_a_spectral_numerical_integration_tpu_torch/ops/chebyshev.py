@@ -21,6 +21,7 @@ __all__ = [
     "integration_matrix",
     "partial_integral_matrix",
     "clenshaw_curtis_weights",
+    "interpolation_matrix",
 ]
 
 
@@ -118,3 +119,34 @@ def clenshaw_curtis_weights(n: int, length: float = 1.0) -> np.ndarray:
     moments[even] = 2.0 / (1.0 - even.astype(np.float64) ** 2)
     w = np.linalg.solve(v.T, moments)
     return _frozen(w * (float(length) / 2.0))
+
+
+@functools.lru_cache(maxsize=None)
+def interpolation_matrix(n: int, xs: tuple, length: float = 1.0) -> np.ndarray:
+    """``P (k, n)``: values on the CGL grid -> values at the arclengths ``xs``.
+
+    Barycentric Lagrange interpolation from the descending CGL nodes, with
+    the CGL barycentric weights ``w_j = 1/c_j`` (:func:`coefficients_c`):
+    exact for polynomials of degree ``<= n-1``, spectrally accurate for
+    smooth fields.  A target on a node gets that node's unit row.  ``xs`` is
+    a tuple of absolute arclengths in ``[0, length]`` (hashable, so the
+    matrix is cached).  The sensing model's markers use it
+    (``models/sensing.py``).
+    """
+    x = cgl_points(n, length)
+    w = 1.0 / coefficients_c(n)
+    ts = np.asarray(xs, np.float64)
+    if ts.ndim != 1:
+        raise ValueError(f"xs must be a flat tuple of arclengths, got {xs!r}")
+    if np.any(ts < -1e-12) or np.any(ts > length * (1 + 1e-12)):
+        raise ValueError(f"interpolation targets {xs!r} outside [0, {length}]")
+    p = np.zeros((ts.size, n))
+    for i, t in enumerate(ts):
+        diff = t - x
+        hit = np.abs(diff) < 1e-14 * max(length, 1.0)
+        if np.any(hit):
+            p[i, np.argmax(hit)] = 1.0
+        else:
+            r = w / diff
+            p[i] = r / r.sum()
+    return _frozen(p)

@@ -15,8 +15,12 @@ import torch
 
 from ..models import dynamics, magnetics, tendon
 from ..models.bifurcation import CriticalPoint
+from ..models.calibration import CalibrationParams
+from ..models.constrained import PlatformRobot
 from ..models.cosserat import ContinuationPath, StaticsConfig
+from ..models.estimation import FilterConfig
 from ..models.rod import RodConfig
+from ..models.sensing import SensingConfig
 from ..models.segment_statics import SegmentedStaticsConfig
 from ..models.segments import SegmentedRodConfig
 from ..ops.collocation import SpectralGrid
@@ -25,7 +29,8 @@ from ..ops.device import canonical_device
 __all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_config_from_jax",
            "segmented_statics_config_from_jax", "tendon_from_jax", "magnet_from_jax",
            "dynamics_config_from_jax", "rod_rod_contact_from_jax", "grid_from_numpy",
-           "continuation_path_from_jax", "critical_point_from_jax"]
+           "continuation_path_from_jax", "critical_point_from_jax", "sensing_config_from_jax",
+           "filter_config_from_jax", "platform_robot_from_jax", "calibration_params_from_jax"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -164,3 +169,47 @@ def critical_point_from_jax(point, device=None) -> CriticalPoint:
     return CriticalPoint(segment=int(point.segment), kind=str(point.kind), lam=float(point.lam),
                          qe=f64(point.qe), null_vector=f64(point.null_vector),
                          coupling=float(point.coupling))
+
+
+def sensing_config_from_jax(cfg) -> SensingConfig:
+    """The port's :class:`SensingConfig` from any object with the JAX
+    ``SensingConfig``'s fields (the sensor fractions, weights, ``reg``,
+    ``iters`` and ``method``)."""
+    return SensingConfig(
+        rod=rod_config_from_jax(cfg.rod), marker_fracs=_floats(cfg.marker_fracs),
+        strain_fracs=_floats(cfg.strain_fracs), pose_fracs=_floats(cfg.pose_fracs),
+        use_tip_quaternion=bool(cfg.use_tip_quaternion),
+        marker_weight=float(cfg.marker_weight), strain_weight=float(cfg.strain_weight),
+        quat_weight=float(cfg.quat_weight), reg=float(cfg.reg), iters=int(cfg.iters),
+        method=str(cfg.method))
+
+
+def filter_config_from_jax(cfg) -> FilterConfig:
+    """The port's :class:`FilterConfig` from any object with the JAX
+    ``FilterConfig``'s fields ``dynamics``, ``sensing``, ``dt``,
+    ``q_accel``, ``r_sigma`` and ``iters``."""
+    return FilterConfig(dynamics=dynamics_config_from_jax(cfg.dynamics),
+                        sensing=sensing_config_from_jax(cfg.sensing), dt=float(cfg.dt),
+                        q_accel=float(cfg.q_accel), r_sigma=float(cfg.r_sigma),
+                        iters=int(cfg.iters))
+
+
+def platform_robot_from_jax(robot) -> PlatformRobot:
+    """The port's :class:`PlatformRobot` from any object with the JAX
+    ``PlatformRobot``'s fields (the leg configuration, base poses, grips,
+    ``gravity`` and ``platform_mass``)."""
+    return PlatformRobot(
+        cfg=dynamics_config_from_jax(robot.cfg), base_positions=_floats(robot.base_positions),
+        base_quaternions=_floats(robot.base_quaternions),
+        attach_points=_floats(robot.attach_points),
+        attach_quaternions=_floats(robot.attach_quaternions), gravity=_floats(robot.gravity),
+        platform_mass=float(robot.platform_mass))
+
+
+def calibration_params_from_jax(params, device=None) -> CalibrationParams:
+    """The port's :class:`CalibrationParams` on ``device`` (default: the
+    card) from the JAX ``CalibrationParams``' arrays ``w`` and ``b``, in
+    their own dtype."""
+    device = canonical_device(device)
+    return CalibrationParams(w=torch.tensor(np.asarray(params.w), device=device),
+                             b=torch.tensor(np.asarray(params.b), device=device))

@@ -4,7 +4,9 @@ FP64 statics residual on K3, and the dynamics layer's fused mass lane (K1 +
 K2) that run on them; and, with no kernel, the layers that run plain torch
 on the card: implicit Newmark (its host syncs), the rod-rod broad phase and
 scenes, segmented dynamics, and the nested-forward-mode guard of the
-implicit Picard solve under the card's torch.
+implicit Picard solve under the card's torch; and the inverse layers:
+the fused sensing measurement on K1, the Gauss-Newton strain fit's host
+syncs, and a platform solve against the same solve on the CPU.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -12,6 +14,7 @@ so on a machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -19,12 +22,14 @@ import pytest
 import torch
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
+    constrained,
     cosserat,
     dynamics,
     magnetics,
     rod,
     segment_statics,
     segments,
+    sensing,
     tendon,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
@@ -570,3 +575,61 @@ def test_segmented_mass_and_rhs_matches_cpu(cuda):
     for mine, ref in zip(call(cuda), call("cpu")):
         torch.testing.assert_close(mine.cpu(), ref, rtol=0,
                                    atol=1e-10 * max(1.0, float(ref.abs().max())))
+
+
+def test_fused_measure_launches_one_k1_and_matches_picard(cuda):
+    """measure(method='fused') on the card: exactly one K1 launch and no
+    other kernel, within 5e-5 of the f64 picard measurement (markers and
+    the tip frame)."""
+    qes = torch.tensor(0.8 * np.random.default_rng(5).standard_normal((B, 9)), device=cuda)
+    fused = sensing.SensingConfig(use_tip_quaternion=True, method="fused")
+    wrappers = (rk.rod_shape_fused, rk.picard_correction_fused, rk.rod_shape_fused_bc,
+                rfk.rod_shape_refined_kernel, rfk.rod_shape_refined_kernel_bc)
+    for w in wrappers:
+        w.launches = 0
+    y = sensing.measure(qes, fused)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [1, 0, 0, 0, 0]
+    ref = sensing.measure(qes, dataclasses.replace(fused, method="picard"))
+    assert y.dtype == torch.float64 and y.shape == (B, 16)
+    assert float((y - ref).abs().max()) < F32_TOL
+
+
+def test_fit_strain_syncs_once_per_iterate(cuda):
+    """fit_strain's Gauss-Newton loop on the card: one host sync per
+    iterate (its stop test on the batch's largest residual), none other
+    per iterate: three iterates sync twice more than one."""
+    cfg = sensing.SensingConfig(marker_fracs=(0.3, 0.6), pose_fracs=(0.5, 1.0))
+    qes = torch.tensor(0.6 * np.random.default_rng(3).standard_normal((64, 9)), device=cuda)
+    ys = sensing.measure(qes, cfg)
+
+    def fit(k):
+        return sensing.fit_strain(ys, cfg, tol=0.0, max_iter=k)
+
+    fit(1)
+    sol1, once = _host_syncs(lambda: fit(1))
+    sol3, thrice = _host_syncs(lambda: fit(3))
+    assert int(sol1.iterations) == 1 and int(sol3.iterations) == 3
+    assert thrice - once == 2, (once, thrice)
+
+
+def test_platform_solve_on_card_matches_cpu(cuda):
+    """solve_platform of the three-leg vertical PCR (tests/test_constrained.py:
+    106-116) over two platform wrenches on the card within 1e-9 of the same
+    solve on the CPU, every sample converged."""
+    s = float(np.sqrt(2) / 2)
+    bases = tuple((0.3 * np.cos(a), 0.3 * np.sin(a), 0.0)
+                  for a in (0.0, 2 * np.pi / 3, 4 * np.pi / 3))
+    robot = constrained.PlatformRobot(
+        cfg=dynamics.DynamicsConfig(statics=cosserat.StaticsConfig(
+            rod=rod.RodConfig(n=12, ne=3, na=6), stiffness=(1.0, 1.0, 1.0, 100.0, 50.0, 50.0))),
+        base_positions=bases, base_quaternions=((s, 0.0, -s, 0.0),) * 3, attach_points=bases)
+    f = torch.tensor([[0.0, 0.0, -0.6], [0.05, -0.02, -0.3]], dtype=torch.float64)
+    sols = [constrained.solve_platform(robot, platform_force=f.to(dev), tol=1e-11)
+            for dev in (cuda, torch.device("cpu"))]
+    for sol in sols:
+        assert bool(sol.converged.all())
+    for name in ("qe", "platform_position", "platform_quaternion", "reaction_force"):
+        a, b = (getattr(sol, name) for sol in sols)
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) < 1e-9, name
