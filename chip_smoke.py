@@ -70,6 +70,21 @@ which raises on failure (exit code != 0, no result lines):
    calibration trainer (B=4096, 20 steps); each call timed (CUDA events)
    with its host syncs and launch counts, and a profiler breakdown of the
    fused measure and of three ``fit_strain`` iterates;
+4f. concentric tubes, utils and examples (no kernel in the CTR layer; 0
+   launches expected): ``solve_ctr`` over a 16^3 grid of base angles of a
+   three-tube robot (n=16, B=4096, tol 1e-10; every sample converged, 16
+   samples against the per-sample CPU solve within 1e-10), one host sync
+   per Newton iterate (three iterates sync twice more than one), the
+   closed forms of tests/test_ctr.py (twist-rigid aligned pair, mean twist,
+   the snap threshold and the post-snap bistability, the telescoping
+   two-arc tip) and the implicit-function Jacobian in reverse and forward
+   mode against central differences; ``solve_ctr``, ``ctr_shape``
+   (picard, dense), ``ctr_stability`` and the differentiable telescoping
+   gradient timed, a profiler breakdown of ``solve_ctr``; the diagnostics
+   of the demo solve; the thirteen examples of the package's ``examples/``
+   (demo, throughput and convergence at full size, the rest with
+   ``--smoke``; the demo's tip against the golden values, throughput
+   launching K1 and K3);
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -90,10 +105,14 @@ result line.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import importlib
+import io
 import json
 import subprocess
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -107,6 +126,7 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     constrained,
     control,
     cosserat,
+    ctr,
     dynamics,
     estimation,
     magnetics,
@@ -116,7 +136,9 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     sensing,
     tendon,
 )
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch import examples
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    chebyshev,
     collocation as coll,
     doubledouble as dd,
     lie,
@@ -125,6 +147,9 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     build,
     refined_kernel as rfk,
     rod_kernel as rk,
+)
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
+    diagnostics,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils.profiling import (
     cuda_time_ms,
@@ -1877,6 +1902,258 @@ def phase_inverse_layers(dev, card: str, launches: dict) -> None:
             print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
 
 
+G_OVER_K = 1.0 / 1.3                                      # g = k / (1 + nu), nu = 0.3
+CTR_KAPPA = float(np.sqrt(1.44 * G_OVER_K))               # every pair: c = 1.44 < (pi/2)^2
+CTR_CFG = ctr.CTRConfig(tubes=(                           # tests/test_ctr.py:20-31, three tubes
+    ctr.Tube(CTR_KAPPA, 2.0, 2.0 * G_OVER_K), ctr.Tube(CTR_KAPPA, 1.0, G_OVER_K),
+    ctr.Tube(CTR_KAPPA, 0.5, 0.5 * G_OVER_K)), n=16)
+CTR_ANGLES = 16                                           # per tube: B = 16^3 = 4096
+CTR_TOL = 1e-10
+CTR_CHECKED = 16                                          # samples re-solved on the CPU
+EXAMPLES_FULL = ("demo", "throughput", "convergence")     # the rest run with --smoke
+
+
+def ctr_pair(kappa, stiff_ratio=1.0, n=24):
+    """tests/test_ctr.py's two-tube pair: tube 1 scaled by ``stiff_ratio``."""
+    return ctr.CTRConfig(tubes=(ctr.Tube(kappa, stiff_ratio, stiff_ratio * G_OVER_K),
+                                ctr.Tube(kappa, 1.0, G_OVER_K)), n=n)
+
+
+def ctr_pair_with_c(c, n=24):
+    return ctr_pair(float(np.sqrt(c * G_OVER_K)), n=n)
+
+
+def ctr_workspace(dev):
+    """The base angles of a CTR_ANGLES^3 grid over [-pi, pi)^3, (B, 3) f64."""
+    a = np.linspace(-np.pi, np.pi, CTR_ANGLES, endpoint=False)
+    return torch.tensor(np.stack(np.meshgrid(a, a, a, indexing="ij"), -1).reshape(-1, 3),
+                        device=dev)
+
+
+def check_ctr_workspace(alphas, sol) -> None:
+    """Every sample converged to CTR_TOL; CTR_CHECKED samples within 1e-10
+    of the port's per-sample f64 solve on the CPU."""
+    worst = float(sol.residual.norm(dim=-1).max())
+    pick = np.linspace(0, alphas.shape[0] - 1, CTR_CHECKED).astype(int)
+    err = max(float((ctr.solve_ctr(alphas[i].cpu(), CTR_CFG, tol=CTR_TOL).theta
+                     - sol.theta[i].cpu()).abs().max()) for i in pick)
+    print(f"    workspace B={alphas.shape[0]}: {int(sol.iterations)} Newton iterates, largest "
+          f"residual norm {worst:.3e} (tol {CTR_TOL:.0e}); {CTR_CHECKED} samples vs the "
+          f"per-sample CPU solve {err:.3e} (bound 1e-10)")
+    if not (worst <= CTR_TOL and err <= 1e-10):
+        raise AssertionError("CTR workspace: a sample did not converge or disagrees with the CPU")
+
+
+def ctr_sync_counts(alphas) -> None:
+    """One host sync per Newton iterate and none else per iterate: three
+    iterates (tol 0) sync twice more than one, counted as phase 4c counts."""
+    def solve(k):
+        return ctr.solve_ctr(alphas, CTR_CFG, tol=0.0, max_iter=k)
+
+    (_, it1), once = host_syncs(lambda: newton_iterates(lambda: solve(1)))
+    (_, it3), thrice = host_syncs(lambda: newton_iterates(lambda: solve(3)))
+    print(f"    solve_ctr B={alphas.shape[0]}: host syncs {once} in {it1} Newton iterate, "
+          f"{thrice} in {it3}; expected {once} + {it3 - it1}")
+    if (it1, it3) != (1, 3) or thrice - once != it3 - it1:
+        raise AssertionError("solve_ctr: host syncs other than one per Newton iterate")
+
+
+def ctr_closed_forms(dev) -> None:
+    """tests/test_ctr.py's closed forms on the card, at its bounds."""
+    def t(a):
+        return torch.tensor(a, dtype=torch.float64, device=dev)
+
+    cfg = ctr_pair(2.0, stiff_ratio=3.0)
+    sol = ctr.solve_ctr(t([0.7, 0.7]), cfg)
+    rigid = float((sol.theta - 0.7).abs().max())
+    sol = ctr.solve_ctr(t([1.3, 0.1]), ctr_pair_with_c(1.44, n=20), tol=1e-13)
+    mean = float((0.5 * (sol.theta[0] + sol.theta[1]) - 0.7).abs().max())
+    print(f"    aligned pair twist-rigid {rigid:.3e} (bound 1e-12); mean twist {mean:.3e} "
+          f"(bound 1e-11)")
+    if not (rigid <= 1e-12 and mean <= 1e-11):
+        raise AssertionError("CTR: aligned pair or mean twist outside tests/test_ctr.py")
+
+    anti = t([np.pi / 2, -np.pi / 2])
+    lams = {}
+    for margin in (0.9, 1.1):
+        cfg = ctr_pair_with_c((margin * np.pi / 2) ** 2)
+        sol = ctr.solve_ctr(anti, cfg)
+        lams[margin] = float(ctr.ctr_stability(sol.theta, anti, cfg))
+        if not np.isclose(ctr.two_tube_snap_parameter(cfg), margin * np.pi / 2, rtol=1e-12):
+            raise AssertionError("CTR: snap parameter")
+    c = (1.15 * np.pi / 2) ** 2
+    cfg = ctr_pair_with_c(c)
+    s = chebyshev.cgl_points(24)
+    branches = []
+    for sign in (1.0, -1.0):
+        pert = sign * np.sin(np.sqrt(c) * s)
+        sol = ctr.solve_ctr(anti, cfg, theta0=t(np.stack([np.pi / 2 + pert / 2,
+                                                          -np.pi / 2 - pert / 2])), tol=1e-12)
+        if not float(ctr.ctr_stability(sol.theta, anti, cfg)) > 0.0:
+            raise AssertionError("CTR: a post-snap branch is not stable")
+        branches.append(float(sol.theta[0, 0] - sol.theta[1, 0]))
+    lo, hi = sorted(branches)
+    sym = abs((hi - np.pi) - (np.pi - lo)) / (hi - np.pi)
+    print(f"    snap sqrt(c) L = 0.9 pi/2: lambda_min {lams[0.9]:+.4e}; 1.1 pi/2: "
+          f"{lams[1.1]:+.4e}; post-snap branches pi{hi - np.pi:+.6f} and pi{lo - np.pi:+.6f}, "
+          f"asymmetry {sym:.3e} (bound 1e-6)")
+    if not (lams[0.9] > 0 > lams[1.1] and hi - np.pi > 0.05 and sym <= 1e-6):
+        raise AssertionError("CTR: snap threshold or bistability outside tests/test_ctr.py")
+
+    alpha, rho, ext, kap = 0.25, 0.6, 0.5, 1.5
+    tel = ctr.solve_ctr_telescoping(t([alpha, alpha]), rho, ext, ctr_pair(kap, n=16),
+                                    method="dense", tol=1e-12)
+    a_cross_e1 = np.array([0.0, np.sin(alpha), -np.cos(alpha)])
+
+    def arc(x):
+        return (np.sin(kap * x) / kap) * np.array([1.0, 0, 0]) + (
+            (1 - np.cos(kap * x)) / kap) * a_cross_e1
+
+    axis, ang, v = np.array([0.0, np.cos(alpha), np.sin(alpha)]), kap * rho, arc(ext)
+    exact = arc(rho) + (v * np.cos(ang) + np.cross(axis, v) * np.sin(ang)
+                        + axis * np.dot(axis, v) * (1 - np.cos(ang)))
+    err = float(np.abs(tel.tip.cpu().numpy() - exact).max())
+    print(f"    telescoping two-arc closed form {err:.3e} (bound 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError("CTR: telescoping closed form")
+
+
+def ctr_tip(cfg):
+    def tip(a, length):
+        theta = ctr.solve_ctr_differentiable(a, cfg, length=length, tol=1e-12)
+        return ctr.ctr_shape(theta, cfg, length=length, method="dense").positions[0]
+
+    return tip
+
+
+def ctr_ift_gate(dev) -> None:
+    """The implicit-function Jacobian of the tip in alphas and length, in
+    reverse and forward mode, against central differences (rtol 2e-5,
+    tests/test_ctr.py:236-260)."""
+    tip = ctr_tip(ctr_pair_with_c(1.44, n=16))
+    a = torch.tensor([0.9, -0.7], dtype=torch.float64, device=dev)
+    ell, eps = torch.tensor(1.0, dtype=torch.float64, device=dev), 1e-6
+    fd = torch.stack([(tip(a + eps * e, ell) - tip(a - eps * e, ell)) / (2 * eps)
+                      for e in torch.eye(2, dtype=torch.float64, device=dev)]
+                     + [(tip(a, ell + eps) - tip(a, ell - eps)) / (2 * eps)], dim=-1)
+    for mode, jac in (("reverse", torch.func.jacrev), ("forward", torch.func.jacfwd)):
+        ja, jl = jac(tip, argnums=(0, 1))(a, ell)
+        j = torch.cat([ja, jl[:, None]], dim=-1)
+        rel = float(((j - fd).abs() / (2e-5 * fd.abs() + 1e-8)).max())
+        print(f"    IFT Jacobian ({mode}): max |J - FD| {float((j - fd).abs().max()):.3e}, "
+              f"{rel:.3f} of the rtol 2e-5 / atol 1e-8 bound")
+        if not rel <= 1.0:
+            raise AssertionError(f"CTR: IFT Jacobian ({mode}) off the central differences")
+
+
+def ctr_timings(dev, alphas, sol, card: str) -> None:
+    """ms per call (CUDA events, median of 3 after one warm-up) of the
+    workspace calls and of the differentiable telescoping gradient; one
+    device breakdown of solve_ctr."""
+    tcfg = ctr_pair(1.2, n=16)
+    a2 = torch.tensor([0.8, -0.5], dtype=torch.float64, device=dev)
+
+    def tel_grad():
+        rho = torch.tensor(0.7, dtype=torch.float64, device=dev)
+        return torch.func.grad(lambda r: ctr.solve_ctr_telescoping(
+            a2, r, 0.4, tcfg, differentiable=True, tol=1e-12).tip[0])(rho)
+
+    b = alphas.shape[0]
+    calls = {f"solve_ctr B={b}": lambda: ctr.solve_ctr(alphas, CTR_CFG, tol=CTR_TOL),
+             f"ctr_shape picard B={b}": lambda: ctr.ctr_shape(sol.theta, CTR_CFG),
+             f"ctr_shape dense B={b}": lambda: ctr.ctr_shape(sol.theta, CTR_CFG, method="dense"),
+             f"ctr_stability B={b}": lambda: ctr.ctr_stability(sol.theta, alphas, CTR_CFG),
+             f"its Hessian alone B={b}": lambda: ctr.torsion_hessian(sol.theta, alphas, CTR_CFG),
+             "telescoping d tip_x / d overlap": tel_grad}
+    for what, fn in calls.items():
+        _, counts = counted(what, fn, ())
+        if counts:
+            raise AssertionError(f"{what}: launched {counts}; the CTR layer has no kernel")
+        ms = cuda_time_ms(fn, warmup=0, reps=3)
+        print(f"    {what}: {ms:.4f} ms per call (median of 3) [{card}]")
+    prof = device_breakdown(calls[f"solve_ctr B={b}"], warmup=0, reps=1)
+    print(f"  profile solve_ctr B={b}: host {prof['host_ms']:.4f} ms, device busy "
+          f"{prof['device_ms']:.4f} ms ({1 - prof['idle']:.1%} busy, idle {prof['idle']:.1%}), "
+          f"{prof['events']:.0f} device events [{card}]")
+    for name, ms, count in prof["top"][:4]:
+        print(f"    {ms:.4f} ms in {count:.0f} x {name[:90]}")
+
+
+def utils_on_card(dev) -> None:
+    """The diagnostics of the demo strain on the card (tests/test_diagnostics.py)."""
+    qe = rod.demo_qe(torch.float64, dev)
+    sol = rod.rod_shape(qe, method="dense")
+    cond = diagnostics.condition_number(qe)
+    drift = diagnostics.quaternion_norm_drift(sol)
+    res = diagnostics.solution_residual_norm(qe, sol)
+    print(f"    demo strain: cond(A_NN) {cond:.4f} (~186), |q| drift {drift:.3e}, collocation "
+          f"residual {res:.3e} (bounds 1e-11)")
+    if not (abs(cond / 186 - 1) < 0.2 and drift < 1e-11 and res < 1e-11):
+        raise AssertionError("diagnostics of the demo solve outside tests/test_diagnostics.py")
+
+
+def run_examples(launches: dict, card: str) -> None:
+    """Each example's main() on the card: demo, throughput and convergence at
+    full size, the others with --smoke; results saved under a temporary
+    directory in the checkout.  The demo's tip against the golden values;
+    throughput must launch K1 and K3."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        saved, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            for name in examples.EXAMPLES:
+                argv = ["--device", "cuda"] + ([] if name in EXAMPLES_FULL else ["--smoke"])
+                module = importlib.import_module(f"{PKG}.examples.{name}")
+                buf = io.StringIO()
+
+                def run(module=module, argv=argv, buf=buf):
+                    with contextlib.redirect_stdout(buf):
+                        return module.main(argv)
+
+                t0 = time.perf_counter()
+                out, counts = counted(f"example {name}", run,
+                                      ("K1", "K3") if name == "throughput" else ())
+                seconds = time.perf_counter() - t0
+                add_counts(launches, counts)
+                lines = buf.getvalue().strip().splitlines()
+                if not (lines and out):
+                    raise AssertionError(f"example {name}: no output")
+                print(f"  example {name} {' '.join(argv)}: {seconds:.1f} s, launches "
+                      f"{counts or 0} [{card}]")
+                for line in lines[-4:] if name != "throughput" else lines:
+                    print(f"    | {line}")
+                if name == "demo":
+                    dq = float(np.abs(out["tip_quaternion"] - np.asarray(GOLDEN_Q)).max())
+                    dr = float(np.abs(out["tip_position"] - np.asarray(GOLDEN_R)).max())
+                    if not (dq <= GOLDEN_TOL and dr <= GOLDEN_TOL):
+                        raise AssertionError(f"example demo: tip off the golden values "
+                                             f"({dq:.2e}, {dr:.2e})")
+        finally:
+            tempfile.tempdir = saved
+
+
+def phase_ctr_utils_examples(dev, card: str, launches: dict) -> None:
+    """Phase 4f: the three-tube workspace (B=4096, its gates, host syncs and
+    0 launches), the closed forms and the IFT Jacobian of tests/test_ctr.py
+    on the card, each CTR call timed, the diagnostics on the card, and the
+    thirteen examples."""
+    alphas = ctr_workspace(dev)
+    (sol, syncs), counts = counted(f"solve_ctr workspace B={alphas.shape[0]}",
+                                   lambda: host_syncs(lambda: ctr.solve_ctr(alphas, CTR_CFG,
+                                                                            tol=CTR_TOL)), ())
+    if counts:
+        raise AssertionError(f"solve_ctr launched {counts}; the CTR layer has no kernel")
+    print(f"    host syncs in the gated call: {syncs} (the first call of the phase: the "
+          f"cached constants' copies to the card included)")
+    check_ctr_workspace(alphas, sol)
+    ctr_sync_counts(alphas)
+    ctr_closed_forms(dev)
+    ctr_ift_gate(dev)
+    ctr_timings(dev, alphas, sol, card)
+    utils_on_card(dev)
+    run_examples(launches, card)
+
+
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
     """Least ms on the card and what bounds it: operations at the published
     peaks (an FMA is 2 FLOP) against bytes at the HBM rate.  ``mat_fma`` are
@@ -2170,6 +2447,10 @@ def main() -> None:
     phase_rest_of_dynamics(dev, card, launches)
     print("== 4e. the inverse and constrained layers (the fused measure on K1)")
     phase_inverse_layers(dev, card, launches)
+    print("== 4f. concentric tubes, utils and examples")
+    t4f = time.perf_counter()
+    phase_ctr_utils_examples(dev, card, launches)
+    print(f"  phase 4f {time.perf_counter() - t4f:.1f} s")
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)

@@ -22,7 +22,10 @@ tip-constrained rods and parallel platforms (``models/constrained.py``),
 trajectory optimization (``models/control.py``), shape sensing and load
 identification (``models/sensing.py``, its fused measurement on K1), the
 EKF/RTS estimator (``models/estimation.py``) and calibration
-(``models/calibration.py``).  It runs on the card
+(``models/calibration.py``); concentric-tube robots (``models/ctr.py``:
+the torsion BVP, stability, backbone shapes and implicit-function
+derivatives); the diagnostics, profiling and persistence helpers
+(``utils/``) and thirteen runnable examples (``examples/``).  It runs on the card
 unless the caller passes CPU tensors or ``device='cpu'``
 (``ops/device.py``).  It imports torch and numpy, never jax.
 
@@ -91,6 +94,18 @@ from .models.cosserat import (  # noqa: E402
     solve_statics_batched,
     solve_statics_differentiable,
     stiffness_profile,
+)
+from .models.ctr import (  # noqa: E402
+    CTRConfig,
+    CTRSolution,
+    TelescopingShape,
+    Tube,
+    ctr_shape,
+    ctr_stability,
+    solve_ctr,
+    solve_ctr_differentiable,
+    solve_ctr_telescoping,
+    two_tube_snap_parameter,
 )
 from .models.dynamics import (  # noqa: E402
     ContactCylinder,
@@ -284,4 +299,14 @@ __all__ = [
     "predict_tips",
     "calibration_loss",
     "make_train_step",
+    "Tube",
+    "CTRConfig",
+    "CTRSolution",
+    "solve_ctr",
+    "solve_ctr_differentiable",
+    "ctr_stability",
+    "ctr_shape",
+    "two_tube_snap_parameter",
+    "TelescopingShape",
+    "solve_ctr_telescoping",
 ]

@@ -396,7 +396,7 @@ def rod_shape(qe, q_init=None, r_init=None, cfg: RodConfig = RodConfig(),
     rhs = coll.ivp_rhs(grid, r0.to(qe_arr.dtype).expand(qe_arr.shape[:-1] + (3,)), g=b)
     if method == "dense":
         dn_nn = grid.dn_nn.to(qe_arr.dtype)
-        r = torch.linalg.solve(dn_nn.expand(rhs.shape[:-2] + dn_nn.shape), rhs)
+        r = torch.linalg.solve_ex(dn_nn.expand(rhs.shape[:-2] + dn_nn.shape), rhs)[0]
     else:
         r = torch.matmul(grid.ginv.to(qe_arr.dtype), rhs)
     return RodSolution(quaternions=q, positions=r)

@@ -22,6 +22,7 @@ __all__ = [
     "partial_integral_matrix",
     "clenshaw_curtis_weights",
     "interpolation_matrix",
+    "gram_matrix",
 ]
 
 
@@ -150,3 +151,32 @@ def interpolation_matrix(n: int, xs: tuple, length: float = 1.0) -> np.ndarray:
             r = w / diff
             p[i] = r / r.sum()
     return _frozen(p)
+
+
+@functools.lru_cache(maxsize=None)
+def gram_matrix(n: int, length: float = 1.0) -> np.ndarray:
+    """``Q (n, n)``: the exact Gram quadrature of grid values,
+    ``f^T Q g = int_0^L f_h g_h`` for the degree-``(n-1)`` interpolants
+    ``f_h``, ``g_h`` of the values.
+
+    Clenshaw-Curtis weights integrate the degree-``2(n-1)`` product of two
+    interpolants inexactly, which costs a Ritz energy its spectral rate.
+    ``Q = V^-T G V^-1`` with the Chebyshev Vandermonde ``V[j, k] = T_k(t_j)``
+    and ``G[i, k] = int_{-1}^{1} T_i T_k`` in closed form (``int T_m =
+    2/(1 - m^2)`` for even ``m``, 0 for odd).  Symmetric positive definite;
+    its row sums are :func:`clenshaw_curtis_weights`.  The concentric-tube
+    torsion energy uses it (``models/ctr.py``).
+    """
+    t = 2.0 * cgl_points(n) - 1.0
+    k = np.arange(n)
+    v = np.cos(np.outer(np.arccos(np.clip(t, -1.0, 1.0)), k))
+
+    def moment(m):
+        m = m.astype(np.float64)
+        even = m % 2 == 0
+        return np.where(even, 2.0 / np.where(even, 1.0 - m ** 2, 1.0), 0.0)
+
+    g = 0.5 * (moment(k[:, None] + k[None, :]) + moment(np.abs(k[:, None] - k[None, :])))
+    vinv = np.linalg.solve(v, np.eye(n))
+    q = vinv.T @ g @ vinv
+    return _frozen(0.5 * (q + q.T) * (float(length) / 2.0))

@@ -10,8 +10,9 @@ The state is kept point-major, ``(..., n-1, d)``; ``I ⊗ Dn_NN`` is one
 product over the point axis and ``M_hat`` a per-point ``d x d`` action.
 Solvers:
 
-* :func:`solve_ivp_dense`: the assembled system through ``torch.linalg.solve``
-  (the reference path, in f64 when the blocks are f64);
+* :func:`solve_ivp_dense`: the assembled system through
+  ``torch.linalg.solve_ex`` (the reference path, in f64 when the blocks are
+  f64; no host sync on the card);
 * :func:`solve_ivp_picard`: the Picard/Neumann iteration
   ``chi <- G rhs + G M_hat chi`` with ``G = Dn_NN^{-1}``;
 * :func:`solve_ivp_refined`: an f32 Picard solve refined against a residual
@@ -137,12 +138,13 @@ def collocation_matrix(grid: SpectralGrid, m_blocks: torch.Tensor) -> torch.Tens
 
 def solve_ivp_dense(grid: SpectralGrid, m_blocks: torch.Tensor, y0: torch.Tensor,
                     g: torch.Tensor | None = None) -> torch.Tensor:
-    """Batched dense solve of the collocation system (``torch.linalg.solve``,
-    never an inverse).  Returns ``(..., np, d)``."""
+    """Batched dense solve of the collocation system (``torch.linalg.solve_ex``,
+    never an inverse; unlike ``solve`` it leaves the singularity check to
+    the caller, so nothing syncs the host).  Returns ``(..., np, d)``."""
     d = m_blocks.shape[-1]
     a = collocation_matrix(grid, m_blocks)
     rhs = ivp_rhs(grid, y0, g, dtype=m_blocks.dtype)
-    flat = torch.linalg.solve(a, to_component_major(rhs).unsqueeze(-1)).squeeze(-1)
+    flat = torch.linalg.solve_ex(a, to_component_major(rhs).unsqueeze(-1))[0].squeeze(-1)
     return from_component_major(flat, grid.num_unknown, d)
 
 

@@ -13,9 +13,13 @@ import torch
 
 __all__ = [
     "skew",
+    "unskew",
+    "ad",
+    "Ad",
     "quat_skew",
     "quat_skew_apply",
     "quat_to_rot",
+    "quat_to_rot_normalized",
     "quat_tangent",
     "rod_tangent",
     "rod_tangent_jvp",
@@ -37,6 +41,25 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def unskew(m: torch.Tensor) -> torch.Tensor:
+    """Inverse hat map ``(..., 3, 3) -> (..., 3)``."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
+def ad(strain: torch.Tensor) -> torch.Tensor:
+    """se(3) adjoint of a 6-strain ``(k, gamma)``: ``[[k^, 0], [gamma^, k^]]``,
+    ``(..., 6) -> (..., 6, 6)``."""
+    k_hat, g_hat = skew(strain[..., 0:3]), skew(strain[..., 3:6])
+    top = torch.cat([k_hat, torch.zeros_like(k_hat)], dim=-1)
+    return torch.cat([top, torch.cat([g_hat, k_hat], dim=-1)], dim=-2)
+
+
+def Ad(rot: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """SE(3) adjoint ``[[R, 0], [p^ R, R]]``: ``(..., 3, 3), (..., 3) -> (..., 6, 6)``."""
+    top = torch.cat([rot, torch.zeros_like(rot)], dim=-1)
+    return torch.cat([top, torch.cat([skew(pos) @ rot, rot], dim=-1)], dim=-2)
 
 
 def quat_skew(k: torch.Tensor) -> torch.Tensor:
@@ -88,6 +111,11 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
         torch.stack([txz - twy, tyz + twx, one - (txx + tyy)], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def quat_to_rot_normalized(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix of the normalized quaternion: a proper rotation."""
+    return quat_to_rot(quat_normalize(q))
 
 
 def quat_tangent(q: torch.Tensor) -> torch.Tensor:

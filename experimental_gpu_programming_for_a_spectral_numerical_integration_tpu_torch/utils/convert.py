@@ -18,6 +18,7 @@ from ..models.bifurcation import CriticalPoint
 from ..models.calibration import CalibrationParams
 from ..models.constrained import PlatformRobot
 from ..models.cosserat import ContinuationPath, StaticsConfig
+from ..models.ctr import CTRConfig, Tube
 from ..models.estimation import FilterConfig
 from ..models.rod import RodConfig
 from ..models.sensing import SensingConfig
@@ -30,7 +31,8 @@ __all__ = ["rod_config_from_jax", "statics_config_from_jax", "segmented_rod_conf
            "segmented_statics_config_from_jax", "tendon_from_jax", "magnet_from_jax",
            "dynamics_config_from_jax", "rod_rod_contact_from_jax", "grid_from_numpy",
            "continuation_path_from_jax", "critical_point_from_jax", "sensing_config_from_jax",
-           "filter_config_from_jax", "platform_robot_from_jax", "calibration_params_from_jax"]
+           "filter_config_from_jax", "platform_robot_from_jax", "calibration_params_from_jax",
+           "ctr_config_from_jax"]
 
 
 def rod_config_from_jax(cfg) -> RodConfig:
@@ -213,3 +215,14 @@ def calibration_params_from_jax(params, device=None) -> CalibrationParams:
     device = canonical_device(device)
     return CalibrationParams(w=torch.tensor(np.asarray(params.w), device=device),
                              b=torch.tensor(np.asarray(params.b), device=device))
+
+
+def ctr_config_from_jax(cfg) -> CTRConfig:
+    """The port's :class:`~..models.ctr.CTRConfig` from any object with the
+    JAX ``CTRConfig``'s fields ``tubes`` (each with ``curvature``,
+    ``bending_stiffness`` and ``torsional_stiffness``), ``n`` and ``length``."""
+    return CTRConfig(tubes=tuple(Tube(curvature=float(t.curvature),
+                                      bending_stiffness=float(t.bending_stiffness),
+                                      torsional_stiffness=float(t.torsional_stiffness))
+                                 for t in cfg.tubes),
+                     n=int(cfg.n), length=float(cfg.length))

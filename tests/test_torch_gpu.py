@@ -6,7 +6,8 @@ on the card: implicit Newmark (its host syncs), the rod-rod broad phase and
 scenes, segmented dynamics, and the nested-forward-mode guard of the
 implicit Picard solve under the card's torch; and the inverse layers:
 the fused sensing measurement on K1, the Gauss-Newton strain fit's host
-syncs, and a platform solve against the same solve on the CPU.
+syncs, and a platform solve against the same solve on the CPU; the dense
+collocation solves' and the concentric-tube Newton's host syncs.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -24,6 +25,7 @@ import torch
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.models import (
     constrained,
     cosserat,
+    ctr,
     dynamics,
     magnetics,
     rod,
@@ -633,3 +635,48 @@ def test_platform_solve_on_card_matches_cpu(cuda):
         a, b = (getattr(sol, name) for sol in sols)
         assert a.device.type == "cuda"
         assert float((a.cpu() - b).abs().max()) < 1e-9, name
+
+
+def test_dense_solves_make_no_host_sync(cuda):
+    """solve_ivp_dense and rod_shape(method='dense') solve through
+    torch.linalg.solve_ex, which leaves the singularity check to the caller:
+    no host sync, against an f64 Picard solve of the same rods."""
+    qes = torch.tensor(0.8 * np.random.default_rng(5).standard_normal((64, 9)), device=cuda)
+    cfg = rod.RodConfig()
+    m = rod._ode_blocks(rod.curvature_at_points(cfg, qes)[..., :3])
+    q0 = torch.zeros(64, 4, dtype=torch.float64, device=cuda)
+    q0[:, 0] = 1.0
+    grid = cfg.grid(cuda)
+    rod.rod_shape(qes, cfg=cfg, method="dense")
+    q, syncs_ivp = _host_syncs(lambda: coll.solve_ivp_dense(grid, m, q0))
+    sol, syncs_rod = _host_syncs(lambda: rod.rod_shape(qes, cfg=cfg, method="dense"))
+    assert (syncs_ivp, syncs_rod) == (0, 0)
+    ref = rod.rod_shape(qes, cfg=cfg, method="picard", iters=40)
+    assert float((q - ref.quaternions).abs().max()) < 1e-12
+    assert float((sol.positions - ref.positions).abs().max()) < 1e-12
+
+
+def test_ctr_newton_syncs_once_per_iterate(cuda):
+    """solve_ctr on the card: one host sync per Newton iterate (the stop
+    test of damped_newton), none other per iterate, and no kernel launch:
+    three iterates sync twice more than one."""
+    g = 1.0 / 1.3
+    kap = float(np.sqrt(1.44 * g))
+    cfg = ctr.CTRConfig(tubes=(ctr.Tube(kap, 2.0, 2.0 * g), ctr.Tube(kap, 1.0, g),
+                               ctr.Tube(kap, 0.5, 0.5 * g)), n=16)
+    alphas = torch.tensor(np.random.default_rng(6).uniform(-np.pi, np.pi, (256, 3)),
+                          device=cuda)
+
+    def solve(k):
+        return ctr.solve_ctr(alphas, cfg, tol=0.0, max_iter=k)
+
+    solve(1)
+    wrappers = (rk.rod_shape_fused, rk.picard_correction_fused, rk.rod_shape_fused_bc,
+                rfk.rod_shape_refined_kernel, rfk.rod_shape_refined_kernel_bc)
+    before = [w.launches for w in wrappers]
+    sol1, once = _host_syncs(lambda: solve(1))
+    sol3, thrice = _host_syncs(lambda: solve(3))
+    assert [w.launches for w in wrappers] == before
+    assert int(sol1.iterations) == 1 and int(sol3.iterations) == 3
+    assert thrice - once == 2, (once, thrice)
+    assert float(sol3.residual.norm(dim=-1).max()) < float(sol1.residual.norm(dim=-1).max())
