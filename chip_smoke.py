@@ -85,6 +85,17 @@ which raises on failure (exit code != 0, no result lines):
    (demo, throughput and convergence at full size, the rest with
    ``--smoke``; the demo's tip against the golden values, throughput
    launching K1 and K3);
+4g. multi-device rod batches (``parallel/mesh.py``) on ``make_mesh()``
+   (every visible card; with more than one, a 1-shard mesh beside it) and
+   on the first card repeated 8 times: ``sharded_rod_shape`` fused and
+   refined (B=131072, exactly one K1/K3 launch per shard, equal to the
+   unsharded call), ``sharded_solve_statics`` (B=16384),
+   ``sharded_simulate`` (RK4 fused, B=2048, 5 steps, 20 K1 and 20 K2 per
+   shard), ``sharded_ctr_workspace`` (B=4096), ``sharded_riks_walk``
+   (B=512) and ``sharded_segmented_statics`` (B=1024), each against its
+   unsharded call at the JAX tests' gates, with its launches per shard and
+   whole-call ms (CUDA events); 1 shard against the others for statics,
+   RK4 and CTR with the device-busy share;
 5. CUDA-event timings of each kernel (one call at a time, and back to back)
    beside its plain version, its bound
    (CUDA-core FP32, and with the f32 matrix products as 3xTF32 on the tensor
@@ -147,6 +158,9 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     build,
     refined_kernel as rfk,
     rod_kernel as rk,
+)
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.parallel import (
+    mesh as parallel_mesh,
 )
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.utils import (
     diagnostics,
@@ -2154,6 +2168,203 @@ def phase_ctr_utils_examples(dev, card: str, launches: dict) -> None:
     run_examples(launches, card)
 
 
+# Phase 4g, multi-device rod batches (parallel/mesh.py) at the main path's
+# width N=16, na=3, ne=3: every visible card (make_mesh()), and the first
+# card repeated 8 times (the JAX tests' 8-way mesh).  The Riks walk and the
+# segmented Newton at phase 4b's and phase 4's batches divided by 8.
+B_SHARD_STATICS, B_SHARD_RK4, RK4_SHARD_STEPS = 16384, 2048, 5
+B_SHARD_RIKS, B_SHARD_SEG = B_RIKS // 8, B_SEG_NEWTON // 8
+SIM_RTOL, SIM_ATOL, ENERGY_RTOL = 2e-5, 2e-6, 2e-4    # tests/test_parallel.py:189-193
+
+
+def shard_call_ms(mesh, fn):
+    """``(fn(), whole-call ms)``: CUDA events recorded on every card of the
+    mesh just before and after the call; the call's ms is the largest
+    card's."""
+    cards = sorted(set(mesh.devices), key=str)
+    marks = {d: (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for d in cards}
+    for d in cards:
+        marks[d][0].record(torch.cuda.current_stream(d))
+    out = fn()
+    for d in cards:
+        marks[d][1].record(torch.cuda.current_stream(d))
+    for d in cards:
+        marks[d][1].synchronize()
+    return out, max(start.elapsed_time(end) for start, end in marks.values())
+
+
+def sharded(what: str, mesh, fn, needs: tuple, per_shard: dict | None = None) -> tuple:
+    """One sharded call with the launch counts set to 0 around it: its
+    per-shard launches (each kernel in ``needs`` launched on every shard,
+    exactly ``per_shard[k]`` times where given) and whole-call ms.
+    Returns (result, counts, ms)."""
+    (out, ms), counts = counted(f"{what} [{mesh.size} shards]",
+                                lambda: shard_call_ms(mesh, fn), needs)
+    by_wrapper = {spec["wrapper"].__name__: k for k, spec in KERNELS.items()}
+    shards = [{by_wrapper[w]: n for w, n in tally.items()} for tally in mesh.shard_launches]
+    print(f"    launches per shard: {shards}; whole call {ms:.4f} ms")
+    for k in needs:
+        if any(s.get(k, 0) < 1 for s in shards):
+            raise AssertionError(f"{what}: {k} was not launched on every shard")
+    for k, n in (per_shard or {}).items():
+        if any(s.get(k, 0) != n for s in shards):
+            raise AssertionError(f"{what}: expected {n} {k} launches on every shard")
+    return out, counts, ms
+
+
+def mesh_inputs(dev):
+    """The main path's N=16 strains (B=131072, 0.8 N(0,1), seed 0), the
+    statics loads, the RK4 strains, the Riks rays, the CTR workspace."""
+    qe = torch.tensor(0.8 * np.random.default_rng(0).standard_normal((B_REAL, 9)), device=dev)
+    hi, lo = dd.split_f64(qe)
+    return dict(hi=hi, lo=lo, loads=statics_loads(dev), qe_dyn=rk4_strains(dev),
+                rays=load_rays(dev)[:B_SHARD_RIKS], alphas=ctr_workspace(dev))
+
+
+def mesh_references(inp) -> dict:
+    """The unsharded calls the sharded ones are held to (their launches do
+    not count)."""
+    q_hi, q_lo, r_hi, r_lo = rfk.rod_shape_refined_kernel(inp["hi"])
+    return dict(
+        fused=rk.rod_shape_fused(inp["hi"]),
+        refined=(q_hi + q_lo, r_hi + r_lo),
+        statics=cosserat.solve_statics_batched(inp["loads"], cfg=S16, **STATICS),
+        rk4=dynamics.simulate(inp["qe_dyn"], torch.zeros_like(inp["qe_dyn"]), DYN_CFG, dt=DYN_DT,
+                              steps=RK4_SHARD_STEPS, iters=DYN_ITERS, mass_tier="fused"),
+        ctr=ctr.solve_ctr(inp["alphas"], CTR_CFG, tol=CTR_TOL),
+        riks=cosserat.arc_length_continuation_batched(inp["rays"], cfg=S16, **RIKS),
+        segmented=segment_statics.solve_segmented_statics_batched(
+            inp["loads"][:B_SHARD_SEG], cfg=SEG_STATICS, **SEG_NEWTON))
+
+
+def mesh_calls(mesh, inp) -> dict:
+    """Each sharded entry point of the phase as one call: key -> (label,
+    callable, kernels it must launch on every shard, exact launches per
+    shard or None)."""
+    qd0 = torch.zeros_like(inp["qe_dyn"])
+    per_stage = 4 * RK4_SHARD_STEPS
+    return {
+        "fused": (f"sharded_rod_shape fused B={B_REAL}", lambda: parallel_mesh.sharded_rod_shape(
+            mesh, method="fused")(inp["hi"]), ("K1",), {"K1": 1}),
+        "refined": (f"sharded_rod_shape refined B={B_REAL}",
+                    lambda: parallel_mesh.sharded_rod_shape(mesh, method="refined")(inp["hi"]),
+                    ("K3",), {"K3": 1}),
+        "statics": (f"sharded_solve_statics B={B_SHARD_STATICS}",
+                    lambda: parallel_mesh.sharded_solve_statics(mesh, cfg=S16, **STATICS)(
+                        inp["loads"]), ("K1", "K2"), None),
+        "rk4": (f"sharded_simulate RK4 fused B={B_SHARD_RK4} {RK4_SHARD_STEPS} steps",
+                lambda: parallel_mesh.sharded_simulate(
+                    mesh, DYN_CFG, dt=DYN_DT, steps=RK4_SHARD_STEPS, iters=DYN_ITERS,
+                    mass_tier="fused")(inp["qe_dyn"], qd0),
+                ("K1", "K2"), {"K1": per_stage, "K2": per_stage}),
+        "ctr": (f"sharded_ctr_workspace B={inp['alphas'].shape[0]}",
+                lambda: parallel_mesh.sharded_ctr_workspace(mesh, CTR_CFG, tol=CTR_TOL)(
+                    inp["alphas"]), (), None),
+        "riks": (f"sharded_riks_walk B={B_SHARD_RIKS}",
+                 lambda: parallel_mesh.sharded_riks_walk(mesh, cfg=S16, **RIKS)(inp["rays"]),
+                 ("K1", "K2"), None),
+        "segmented": (f"sharded_segmented_statics B={B_SHARD_SEG}",
+                      lambda: parallel_mesh.sharded_segmented_statics(
+                          mesh, cfg=SEG_STATICS, **SEG_NEWTON)(inp["loads"][:B_SHARD_SEG]),
+                      ("K4", "K2"), None),
+    }
+
+
+def check_close(what: str, got, ref, atol: float, rtol: float = 0.0) -> None:
+    diff = (got.double() - ref.double()).abs()
+    print(f"    {what}: max |sharded - unsharded| {float(diff.max()):.3e} (atol {atol:.0e}, "
+          f"rtol {rtol:.0e})")
+    if not bool((diff <= atol + rtol * ref.double().abs()).all()):
+        raise AssertionError(f"{what}: outside atol {atol:.0e} + rtol {rtol:.0e} of the "
+                             "unsharded call")
+
+
+def check_mesh_results(out: dict, refs: dict, mesh) -> None:
+    """Each sharded result against its unsharded call: K1 and K3 exactly,
+    the Newtons and walks at the JAX tests' gates, the CTR workspace to
+    1e-10 with every sample converged; every field sharded over the mesh."""
+    for key, res in out.items():
+        for f in res:
+            if isinstance(f, parallel_mesh.ShardedBatch) and len(f.shards) != mesh.size:
+                raise AssertionError(f"{key}: a field has {len(f.shards)} shards, not {mesh.size}")
+    for key in ("fused", "refined"):
+        (q, r), ref = out[key], refs[key]
+        err = max(max_abs(q.gather(), ref[0]), max_abs(r.gather(), ref[1]))
+        print(f"    {key}: max |sharded - unsharded| {err:.3e} (K1 and K3 per rod do not "
+              "depend on the batch: must be 0)")
+        if err != 0.0:
+            raise AssertionError(f"sharded_rod_shape {key}: differs from the unsharded call")
+    for key in ("statics", "riks", "segmented"):
+        if not bool(out[key].converged.gather().all()):
+            raise AssertionError(f"{key}: a sample did not converge")
+    print(f"    statics: Newton steps per shard "
+          f"{[int(s[0]) for s in out['statics'].iterations.shards]}, unsharded "
+          f"{int(refs['statics'].iterations)}")
+    check_close("statics qe", out["statics"].qe.gather(), refs["statics"].qe, QE_TOL)
+    check_close("RK4 qes", out["rk4"].qes.gather(), refs["rk4"].qes, SIM_ATOL, SIM_RTOL)
+    check_close("RK4 energies", out["rk4"].energies.gather(), refs["rk4"].energies, 0.0,
+                ENERGY_RTOL)
+    theta, _, _, rnorm = out["ctr"]
+    worst = float(rnorm.gather().max())
+    print(f"    CTR: largest residual norm {worst:.3e} (tol {CTR_TOL:.0e})")
+    if not worst <= CTR_TOL:
+        raise AssertionError("sharded_ctr_workspace: a sample did not converge")
+    check_close("CTR theta", theta.gather(), refs["ctr"].theta, 1e-10)
+    check_close("Riks lambdas", out["riks"].lambdas.gather(), refs["riks"].lambdas, QE_TOL)
+    check_close("Riks qes", out["riks"].qes.gather(), refs["riks"].qes, QE_TOL)
+    check_close("segmented qe", out["segmented"].qe.gather(), refs["segmented"].qe, QE_TOL)
+
+
+def phase_multi_device(dev, card: str, launches: dict) -> dict:
+    """Phase 4g: every sharded entry point of the main path on make_mesh()
+    (every visible card) and on the first card repeated 8 times, each held
+    to its unsharded call, its launches per shard counted and its whole
+    call timed; 1 shard against 8 for statics, RK4 and CTR with the
+    device-busy share (a profiled call).  Returns {mesh: {key: ms}}."""
+    inp = mesh_inputs(dev)
+    refs = mesh_references(inp)
+    torch.cuda.synchronize()
+    meshes = {"make_mesh()": parallel_mesh.make_mesh(),
+              f"{dev} x 8": parallel_mesh.make_mesh(devices=[dev] * 8)}
+    if meshes["make_mesh()"].size > 1:       # the 1-shard baseline beside every card
+        meshes = {str(dev): parallel_mesh.make_mesh(devices=[dev]), **meshes}
+    timings, busy = {}, {}
+    for label, mesh in meshes.items():
+        with mesh:
+            print(f"  mesh {label}: {mesh.size} shards on {sorted({str(d) for d in mesh.devices})}")
+            out, timings[label] = {}, {}
+            calls = mesh_calls(mesh, inp)
+            if len(set(mesh.devices)) > 1:       # the other cards' first calls set them up
+                for _, fn, _, _ in calls.values():
+                    fn()
+                for d in set(mesh.devices):
+                    torch.cuda.synchronize(d)
+            for key, (what, fn, needs, per_shard) in calls.items():
+                out[key], counts, timings[label][key] = sharded(what, mesh, fn, needs, per_shard)
+                add_counts(launches, counts)
+            check_mesh_results(out, refs, mesh)
+            del out
+            for key in ("statics", "rk4", "ctr"):
+                prof = device_breakdown(calls[key][1], warmup=0, reps=1)
+                busy[label, key] = prof["device_ms"] / prof["host_ms"] / len(set(mesh.devices))
+                print(f"    profile {calls[key][0]} [{mesh.size} shards]: host "
+                      f"{prof['host_ms']:.4f} ms, device busy {prof['device_ms']:.4f} ms "
+                      f"({busy[label, key]:.1%} per card), {prof['events']:.0f} device events "
+                      f"[{card}]")
+            torch.cuda.empty_cache()
+    one, *others = meshes
+    for key in ("statics", "rk4", "ctr"):
+        base = timings[one][key]
+        for label in others:
+            m = meshes[label]
+            print(f"  {key}: 1 shard {base:.4f} ms (device busy {busy[one, key]:.1%}); "
+                  f"{m.size} shards on {len(set(m.devices))} card(s) {timings[label][key]:.4f} ms "
+                  f"(busy {busy[label, key]:.1%} per card): {timings[label][key] / base:.2f}x "
+                  f"[{card}]")
+    return timings
+
+
 def bound(mat_fma: float, f32_fma: float, f64_fma: float, nbytes: float) -> dict:
     """Least ms on the card and what bounds it: operations at the published
     peaks (an FMA is 2 FLOP) against bytes at the HBM rate.  ``mat_fma`` are
@@ -2451,6 +2662,12 @@ def main() -> None:
     t4f = time.perf_counter()
     phase_ctr_utils_examples(dev, card, launches)
     print(f"  phase 4f {time.perf_counter() - t4f:.1f} s")
+    print("== 4g. multi-device rod batches (parallel/mesh.py)")
+    t4g = time.perf_counter()
+    mesh_ms = phase_multi_device(dev, card, launches)
+    if len(mesh_ms) < 2 or not all(len(calls) == 7 for calls in mesh_ms.values()):
+        raise AssertionError(f"phase 4g did not run every sharded call on both meshes: {mesh_ms}")
+    print(f"  phase 4g {time.perf_counter() - t4g:.1f} s")
     print(f"main-path launches: {launches}")
     print("== 5. timing (CUDA events, median of 10 after 3 warm-up calls)")
     times = phase_timing(dev, card, errors)

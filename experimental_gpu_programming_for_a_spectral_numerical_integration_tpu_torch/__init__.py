@@ -25,7 +25,9 @@ EKF/RTS estimator (``models/estimation.py``) and calibration
 (``models/calibration.py``); concentric-tube robots (``models/ctr.py``:
 the torsion BVP, stability, backbone shapes and implicit-function
 derivatives); the diagnostics, profiling and persistence helpers
-(``utils/``) and thirteen runnable examples (``examples/``).  It runs on the card
+(``utils/``), thirteen runnable examples (``examples/``) and the
+multi-device rod batches (``parallel/mesh.py``: the sharded entry points,
+one host thread per shard).  It runs on the card
 unless the caller passes CPU tensors or ``device='cpu'``
 (``ops/device.py``).  It imports torch and numpy, never jax.
 

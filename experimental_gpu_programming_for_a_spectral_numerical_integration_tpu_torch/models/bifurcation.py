@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.device import as_tensor
+from ..ops.device import as_tensor, locked_jacfwd
 from . import cosserat
 
 __all__ = [
@@ -168,7 +168,7 @@ def detect_critical_points(path: cosserat.ContinuationPath, load_ref,
     _, corrector = cosserat._riks_machinery(res, nq, tol, max_corrector, psi_weight)
 
     def jac_at(x):
-        return _host(torch.func.jacfwd(res)(x[:nq], x[nq]))
+        return _host(locked_jacfwd(res)(x[:nq], x[nq]))
 
     def count_at(x):
         return int((np.linalg.eigvals(jac_at(x)).real < 0).sum())
@@ -234,8 +234,8 @@ def linearized_buckling_loads(load_ref, cfg: cosserat.StaticsConfig = cosserat.S
             "linearized_buckling_loads needs a trivial branch: res(qe0, lam) must vanish "
             f"for all lam (got |res(0)| = {r0:.2e}, |res(1)| = {r1:.2e}); use "
             "detect_critical_points along a continuation path instead")
-    j0 = _host(torch.func.jacfwd(res)(qe0, 0.0))
-    j1 = _host(torch.func.jacfwd(res)(qe0, 1.0)) - j0
+    j0 = _host(locked_jacfwd(res)(qe0, 0.0))
+    j1 = _host(locked_jacfwd(res)(qe0, 1.0)) - j0
     mu = np.linalg.eigvals(np.linalg.solve(j0, j1))
     lam = -1.0 / mu[np.abs(mu) > 1e-12]
     lam = np.real(lam[np.abs(lam.imag) <= real_tol * np.maximum(np.abs(lam), 1.0)])

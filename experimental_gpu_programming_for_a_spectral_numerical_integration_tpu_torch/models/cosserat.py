@@ -53,7 +53,7 @@ from ..ops import basis as basis_ops
 from ..ops import chebyshev
 from ..ops import doubledouble as dd
 from ..ops import lie
-from ..ops.device import as_tensor, cached_constants
+from ..ops.device import as_tensor, cached_constants, locked_jacfwd, locked_jvp
 from . import rod
 
 __all__ = [
@@ -393,7 +393,7 @@ def _per_sample_jacobian(res, q: torch.Tensor, chunk_size: int | None = None) ->
     samples depend on their own strains only: one jvp per unit direction
     shared by the batch, ``chunk_size`` directions at a time (default all)."""
     eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
-    cols = torch.func.vmap(lambda e: torch.func.jvp(res, (q,), (e.expand(q.shape),))[1],
+    cols = torch.func.vmap(lambda e: locked_jvp(res, (q,), (e.expand(q.shape),))[1],
                            chunk_size=chunk_size)(eye)
     return torch.movedim(cols, 0, -1)
 
@@ -459,7 +459,7 @@ def jvp_columns(f, primals: tuple, tangents: tuple):
     ``primals[i]``'s shape with a leading direction axis).  ``jac``:
     ``(..., n_out, n_dir)``."""
     res = f(*primals)
-    dres = torch.func.vmap(lambda *t: torch.func.jvp(f, primals, t)[1])(*tangents)
+    dres = torch.func.vmap(lambda *t: locked_jvp(f, primals, t)[1])(*tangents)
     return res, torch.movedim(dres, 0, -1)
 
 
@@ -596,7 +596,7 @@ class _StaticsIFT(torch.autograd.Function):
         res_loads, jinv = _StaticsIFT._parts(ctx)
         tangents = tuple(torch.zeros_like(p) if t is None else t
                          for p, t in ((f, d_force), (m, d_moment)))
-        dres = torch.func.jvp(res_loads, (f, m), tangents)[1]
+        dres = locked_jvp(res_loads, (f, m), tangents)[1]
         return -torch.einsum("...ij,...j->...i", jinv, dres)
 
     @staticmethod
@@ -668,7 +668,7 @@ def _riks_machinery(res, nq: int, tol: float, max_corrector: int, psi: float):
     ``bifurcation.switch_branch``."""
 
     def tangent(qe, lam, t_prev):
-        j = torch.func.jacfwd(res)(qe, lam)
+        j = locked_jacfwd(res)(qe, lam)
         dqe = torch.linalg.solve(j, res(qe, 0.0) - res(qe, 1.0))
         t = torch.cat([dqe, dqe.new_ones(1)]) / torch.sqrt(torch.sum(dqe * dqe) + psi ** 2)
         # orientation continuity: keep walking the same way along the path
@@ -684,7 +684,7 @@ def _riks_machinery(res, nq: int, tol: float, max_corrector: int, psi: float):
         for _ in range(max_corrector):
             if not float(torch.linalg.vector_norm(a)) > tol:
                 break
-            x = x - torch.linalg.solve(torch.func.jacfwd(aug)(x), a)
+            x = x - torch.linalg.solve(locked_jacfwd(aug)(x), a)
             a = aug(x)
         return x, bool(torch.linalg.vector_norm(a) <= tol)
 

@@ -44,7 +44,7 @@ import torch
 from ..ops import chebyshev
 from ..ops import collocation as coll
 from ..ops import lie
-from ..ops.device import cached_constants, canonical_device
+from ..ops.device import cached_constants, canonical_device, locked_jvp
 from . import rod
 
 __all__ = [
@@ -386,8 +386,8 @@ class _SolveThetaIFT(torch.autograd.Function):
         da = torch.zeros_like(alphas) if da is None else da
         dl = torch.zeros_like(length) if dl is None else dl
         z = _unknowns(theta, cfg)
-        _, rhs_t = torch.func.jvp(lambda aa, ll: torsion_residual(z, aa, cfg, ll),
-                                  (alphas, length), (da, dl))
+        _, rhs_t = locked_jvp(lambda aa, ll: torsion_residual(z, aa, cfg, ll),
+                              (alphas, length), (da, dl))
         h = torsion_hessian(theta, alphas, cfg, length)
         dz = -torch.linalg.solve_ex(h, rhs_t.unsqueeze(-1))[0][..., 0]
         dtheta_u = dz.reshape(dz.shape[:-1] + (cfg.num_tubes, cfg.n - 1))

@@ -52,7 +52,8 @@ import torch
 from ..ops import basis as basis_ops
 from ..ops import collocation as coll
 from ..ops import lie
-from ..ops.device import as_tensor, cached_constants, default_device
+from ..ops.device import (as_tensor, cached_constants, default_device, locked_jacfwd,
+                          locked_jvp)
 from . import cosserat, rod
 from . import magnetics as magnetics_mod
 from .bifurcation import _host
@@ -924,7 +925,7 @@ def _mass_and_rhs(qe, qd, cfg: DynamicsConfig, tip_force=None, iters: int = 16,
         sprime = torch.sigmoid(g / ct.smoothing)
         coef = ct.stiffness * s * sprime
         if ct.damping or ct.friction:
-            gdot = torch.func.jvp(ct.gap, (r_full,), (rdot,))[1]
+            gdot = locked_jvp(ct.gap, (r_full,), (rdot,))[1]
         if ct.damping:
             coef = coef + ct.damping * sprime * gdot
         r_cot = r_cot + pull_g(-(w_q * coef))[0]
@@ -1400,7 +1401,7 @@ def _linearization(cfg: DynamicsConfig, qe, tip_force, tip_moment, rr, base_posi
         m = _block_diagonal(m)
     residual = _balance_residual_fn(cfg, tip_force, tip_moment, iters, rr, base_positions,
                                     scene_shape, tension, b_field)
-    return qe, m, -_host(torch.func.jacfwd(residual)(qe_flat)), scene_shape
+    return qe, m, -_host(locked_jacfwd(residual)(qe_flat)), scene_shape
 
 
 def linearized_spectrum(cfg: DynamicsConfig, qe=None, tip_force=None, tip_moment=None,
@@ -1494,7 +1495,7 @@ def frequency_response(cfg: DynamicsConfig, omegas, drive_force=None, drive_mome
                      for w in np.atleast_1d(np.asarray(omegas, np.float64))])
     if observe == "modes":
         return amps
-    j_tip = _host(torch.func.jacfwd(lambda q_: cfg.state_full(q_, iters)[0][..., 0, :])(qe))
+    j_tip = _host(locked_jacfwd(lambda q_: cfg.state_full(q_, iters)[0][..., 0, :])(qe))
     return amps @ j_tip.T
 
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import chebyshev, lie
-from ..ops.device import as_tensor, cached_constants
+from ..ops.device import as_tensor, cached_constants, locked_jvp
 from . import cosserat
 from . import rod as rod_mod
 
@@ -233,8 +233,8 @@ def tip_sensitivity(qe, tension, cfg, tip_force=None, tip_moment=None, iters: in
     sol, info = torch.linalg.solve_ex(j_q, j_t)
     dqe_dt = torch.where((info == 0)[..., None, None], -sol, torch.nan)
     tip = _tip_of(qe, cfg, iters)
-    j_tip = torch.func.vmap(lambda d: torch.func.jvp(lambda q_: _tip_of(q_, cfg, iters),
-                                                     (qe,), (d,))[1])(
+    j_tip = torch.func.vmap(lambda d: locked_jvp(lambda q_: _tip_of(q_, cfg, iters),
+                                                 (qe,), (d,))[1])(
         torch.movedim(dqe_dt, -1, 0))
     return tip, torch.movedim(j_tip, 0, -1)
 

@@ -9,10 +9,21 @@ the CPU.  There is no fallback to the CPU.
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
-__all__ = ["default_device", "canonical_device", "as_tensor", "cached_constants"]
+__all__ = ["default_device", "canonical_device", "as_tensor", "cached_constants",
+           "locked_jvp", "locked_jacfwd"]
+
+# torch keeps forward-mode AD's state per process, not per thread: the
+# nesting count of ``torch.func.jvp`` is a module global and its dual levels
+# are global, so two threads' jvps at once delete each other's level and
+# raise (or lose their tangents).  A mesh runs its shards in threads of its
+# own (``parallel/mesh.py``), so every forward-mode transform of the port
+# runs under this lock; reverse mode and ``vmap`` keep their state per
+# thread and need none.
+_FORWARD_MODE = threading.RLock()
 
 
 def default_device() -> torch.device:
@@ -55,3 +66,21 @@ def cached_constants(build):
         with torch._C._DisableFuncTorch():
             return build(*args)
     return cached
+
+
+def locked_jvp(func, primals, tangents, **kwargs):
+    """``torch.func.jvp`` under the process's forward-mode lock."""
+    with _FORWARD_MODE:
+        return torch.func.jvp(func, primals, tangents, **kwargs)
+
+
+def locked_jacfwd(func, *args, **kwargs):
+    """``torch.func.jacfwd``, its Jacobian evaluated under the process's
+    forward-mode lock."""
+    jac = torch.func.jacfwd(func, *args, **kwargs)
+
+    @functools.wraps(jac)
+    def locked(*a, **k):
+        with _FORWARD_MODE:
+            return jac(*a, **k)
+    return locked

@@ -11,18 +11,20 @@ a launch on a CUDA tensor needs the compiler.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "load_library",
-           "check_launch", "ptr", "stream_of"]
+           "check_launch", "ptr", "stream_of", "count_launch", "launch_tally"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -32,6 +34,15 @@ BUILD_DIR = _PKG / "_build"
 # writes each kernel's registers, shared memory and spills to the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# A mesh's shards launch from threads of their own (``parallel/mesh.py``):
+# one lock per library makes their first calls run nvcc once, while the
+# different sources still build at the same time; one lock keeps the launch
+# counts whole.
+_LOCKS_LOCK = threading.Lock()
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def nvcc_path() -> str:
@@ -60,17 +71,20 @@ def load_library(name: str, signatures: dict) -> ctypes.CDLL:
         digest.update(part.read_bytes())
     lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     seconds = 0.0
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+    with _LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            (BUILD_DIR / f"{name}.nvcc.log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+            os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in signatures.items():
         entry = getattr(lib, fn)
@@ -94,3 +108,25 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` counts it,
+    and so does this thread's :func:`launch_tally` when one is open."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[wrapper.__name__] = tally.get(wrapper.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Count this thread's kernel launches, by wrapper name, while open;
+    yields the dict of counts."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer

@@ -290,7 +290,7 @@ def rod_shape_refined_kernel(qes, qes_lo=None, cfg: RodConfig = RodConfig(),
         return rod_shape_refined_plain(qes, qes_lo, cfg, iters, corr_iters, check_rho)
     outs = _launch(build_library().rod_shape_refined, qes, qes_lo, cfg, iters, corr_iters,
                    check_rho, "rod_shape_refined_kernel")
-    rod_shape_refined_kernel.launches += 1
+    build.count_launch(rod_shape_refined_kernel)
     return outs
 
 
@@ -308,7 +308,7 @@ def rod_shape_refined_kernel_wide(qes, qes_lo=None, cfg: RodConfig = RodConfig(n
         return rod_shape_refined_plain(qes, qes_lo, cfg, iters, corr_iters, check_rho)
     outs = _launch(build_wide_library().rod_shape_refined_wide, qes, qes_lo, cfg, iters,
                    corr_iters, check_rho, "rod_shape_refined_kernel_wide")
-    rod_shape_refined_kernel_wide.launches += 1
+    build.count_launch(rod_shape_refined_kernel_wide)
     return outs
 
 
@@ -342,7 +342,7 @@ def rod_shape_refined_kernel_bc(qes, q_init, r_init, qes_lo=None, q_init_lo=None
                                           check_rho=check_rho)
     outs = _launch(build_library().rod_shape_refined_bc, qes, qes_lo, cfg, iters, corr_iters,
                    check_rho, "rod_shape_refined_kernel_bc", bc)
-    rod_shape_refined_kernel_bc.launches += 1
+    build.count_launch(rod_shape_refined_kernel_bc)
     return outs
 
 
@@ -363,7 +363,7 @@ def rod_shape_refined_kernel_bc_wide(qes, q_init, r_init, qes_lo=None, q_init_lo
                                           check_rho=check_rho)
     outs = _launch(build_wide_library().rod_shape_refined_bc_wide, qes, qes_lo, cfg, iters,
                    corr_iters, check_rho, "rod_shape_refined_kernel_bc_wide", bc)
-    rod_shape_refined_kernel_bc_wide.launches += 1
+    build.count_launch(rod_shape_refined_kernel_bc_wide)
     return outs
 
 

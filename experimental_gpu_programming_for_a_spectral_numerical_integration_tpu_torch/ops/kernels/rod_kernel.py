@@ -317,7 +317,7 @@ def rod_shape_fused(qes, cfg: RodConfig = RodConfig(), iters: int = 20,
     c = constants(cfg, qes.device)
     q, r = _launch_fused(build_library().rod_shape_fused_f32, c.gtp, qes, cfg, c, iters,
                          "rod_shape_fused")
-    rod_shape_fused.launches += 1
+    build.count_launch(rod_shape_fused)
     return q, r
 
 
@@ -337,7 +337,7 @@ def rod_shape_fused_wide(qes, cfg: RodConfig = RodConfig(n=64), iters: int = 20,
     c = constants(cfg, qes.device)
     q, r = _launch_fused(build_wide_library().rod_shape_fused_wide_f32, c.gt, qes, cfg, c,
                          iters, "rod_shape_fused_wide")
-    rod_shape_fused_wide.launches += 1
+    build.count_launch(rod_shape_fused_wide)
     return q, r
 
 
@@ -382,7 +382,7 @@ def rod_shape_fused_bc(qes, q_init, r_init, cfg: RodConfig = RodConfig(),
     c = constants(cfg, qes.device)
     q, r = _launch_fused(build_library().rod_shape_fused_bc_f32, c.gtp, qes, cfg, c, iters,
                          "rod_shape_fused_bc", (q0, r0))
-    rod_shape_fused_bc.launches += 1
+    build.count_launch(rod_shape_fused_bc)
     return q, r
 
 
@@ -400,7 +400,7 @@ def rod_shape_fused_bc_wide(qes, q_init, r_init, cfg: RodConfig = RodConfig(n=64
     c = constants(cfg, qes.device)
     q, r = _launch_fused(build_wide_library().rod_shape_fused_bc_wide_f32, c.gt, qes, cfg, c,
                          iters, "rod_shape_fused_bc_wide", (q0, r0))
-    rod_shape_fused_bc_wide.launches += 1
+    build.count_launch(rod_shape_fused_bc_wide)
     return q, r
 
 
@@ -446,7 +446,7 @@ def picard_correction_fused(qes, rhs, cfg: RodConfig = RodConfig(),
     c = constants(cfg, qes.device)
     x = _launch_correction(build_library().picard_correction_f32, c.gtp, qes, rhs, cfg, c,
                            iters, "picard_correction_fused")
-    picard_correction_fused.launches += 1
+    build.count_launch(picard_correction_fused)
     return x
 
 
@@ -465,7 +465,7 @@ def picard_correction_fused_wide(qes, rhs, cfg: RodConfig = RodConfig(n=64),
     c = constants(cfg, qes.device)
     x = _launch_correction(build_wide_library().picard_correction_wide_f32, c.gt, qes, rhs,
                            cfg, c, iters, "picard_correction_fused_wide")
-    picard_correction_fused_wide.launches += 1
+    build.count_launch(picard_correction_fused_wide)
     return x
 
 

@@ -9,7 +9,8 @@ from JAX's ``_rk4_step`` (one ``jax.jit``: the prediction and ``F`` by a
 fourth-order central difference, error ~1e-12): linearizing JAX's RK4 step
 by forward mode costs ~40 s to trace and compile on a CPU, its forward step
 ~10 s.  The measurement update (``measure``, its Jacobian, the Joseph form,
-the NIS) is JAX's own.  ``simulate_measurements`` and the smoothed
+the NIS) is JAX's own (the filter and the inputs' ``measure`` each under
+one ``jax.jit``).  ``simulate_measurements`` and the smoothed
 covariances are held to the JAX test's symmetric-PSD gate; the NEES gate
 runs on the card (``chip_smoke.py`` phase 4e).
 """
@@ -54,7 +55,8 @@ def _inputs():
     x += 0.01 * rng.standard_normal((B, D))
     a = 1e-2 * rng.standard_normal((B, D, D))
     p = a @ np.swapaxes(a, 1, 2) + 1e-4 * np.eye(D)
-    y = np.asarray(jsen.measure(jnp.asarray(x[:, :6] + 1e-3), JCFG.sensing))[None]
+    y = np.asarray(jax.jit(jsen.measure, static_argnums=1)(jnp.asarray(x[:, :6] + 1e-3),
+                                                            JCFG.sensing))[None]
     y = y + 1e-3 * rng.standard_normal(y.shape)
     return dict(x=x, p=p, y=y)
 
@@ -84,7 +86,7 @@ def jax_ref(monkeypatch_module):
     monkeypatch_module.setattr(
         jest, "_rk4_step",
         lambda xx, t, cfg, *a: xp + jnp.einsum("...ij,...j->...i", fj, xx - x0))
-    res = jest.ekf(jnp.asarray(x["y"]), JCFG, x0, jnp.asarray(x["p"]))
+    res = jax.jit(jest.ekf, static_argnums=1)(jnp.asarray(x["y"]), JCFG, x0, jnp.asarray(x["p"]))
     return {k: np.asarray(v) for k, v in res._asdict().items()}
 
 

@@ -7,7 +7,11 @@ scenes, segmented dynamics, and the nested-forward-mode guard of the
 implicit Picard solve under the card's torch; and the inverse layers:
 the fused sensing measurement on K1, the Gauss-Newton strain fit's host
 syncs, and a platform solve against the same solve on the CPU; the dense
-collocation solves' and the concentric-tube Newton's host syncs.
+collocation solves' and the concentric-tube Newton's host syncs; and the
+multi-device rod batches (``parallel/mesh.py``): K1 and K3 sharded over
+the first card repeated 4 times equal to the unsharded call, two threads'
+first builds of a kernel library running nvcc once, and each shard's
+``default_device()`` naming its own card when there are two or more.
 
 Marked ``gpu``: they skip without a CUDA device.  This file imports no jax,
 so on a machine without JAX it runs as
@@ -16,6 +20,7 @@ so on a machine without JAX it runs as
 """
 
 import dataclasses
+import threading
 import warnings
 
 import numpy as np
@@ -39,9 +44,16 @@ from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch
     collocation as coll,
     doubledouble as dd,
 )
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops import (
+    device as device_ops,
+)
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.ops.kernels import (
+    build,
     refined_kernel as rfk,
     rod_kernel as rk,
+)
+from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu_torch.parallel import (
+    mesh as pm,
 )
 
 pytestmark = pytest.mark.gpu
@@ -680,3 +692,68 @@ def test_ctr_newton_syncs_once_per_iterate(cuda):
     assert int(sol1.iterations) == 1 and int(sol3.iterations) == 3
     assert thrice - once == 2, (once, thrice)
     assert float(sol3.residual.norm(dim=-1).max()) < float(sol1.residual.norm(dim=-1).max())
+
+
+@pytest.mark.parametrize("method,n", [("fused", 16), ("refined", 16), ("fused", 64)])
+def test_sharded_k1_k3_equal_unsharded_on_repeated_card(cuda, method, n):
+    """K1 and K3 per rod do not depend on the batch: sharded over the first
+    card repeated 4 times, one launch per shard from each shard's thread,
+    the result equals the unsharded call exactly (n=64: K1 wide, whose
+    launcher sets its shared-memory attribute at every launch)."""
+    cfg = rod.RodConfig(n=n)
+    hi, _ = _qes(cuda, 3, 7)
+    wrapper = {("fused", 16): rk.rod_shape_fused, ("refined", 16): rfk.rod_shape_refined_kernel,
+               ("fused", 64): rk.rod_shape_fused_wide}[method, n]
+    with pm.make_mesh(devices=[cuda] * 4) as mesh:
+        q, r = pm.sharded_rod_shape(mesh, method=method, cfg=cfg)(hi)
+        assert mesh.shard_launches == [{wrapper.__name__: 1}] * 4
+        assert q.devices == (cuda,) * 4
+    out = (rk.rod_shape_fused if method == "fused" else rfk.rod_shape_refined_kernel)(hi, cfg=cfg)
+    q_ref, r_ref = out if method == "fused" else (out[0] + out[1], out[2] + out[3])
+    assert torch.equal(q.gather(), q_ref) and torch.equal(r.gather(), r_ref)
+
+
+def test_concurrent_first_builds_run_nvcc_once(cuda, tmp_path, monkeypatch):
+    """Two threads' first calls to build_library on an empty build
+    directory: nvcc runs once and both load the library."""
+    runs = []
+    run = build.subprocess.run
+
+    def counting_run(argv, *args, **kwargs):
+        if argv[0].endswith("nvcc"):
+            runs.append(argv)
+        return run(argv, *args, **kwargs)
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.subprocess, "run", counting_run)
+    rk.build_library.cache_clear()
+    start, libs = threading.Barrier(2), [None, None]
+
+    def first_call(i):
+        start.wait()
+        libs[i] = rk.build_library()
+
+    try:
+        threads = [threading.Thread(target=first_call, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        assert len(runs) == 1
+        assert all(lib is not None and hasattr(lib, "rod_shape_fused_f32") for lib in libs)
+        assert not list(tmp_path.glob(".*.tmp"))
+    finally:
+        rk.build_library.cache_clear()
+
+
+def test_each_shard_runs_on_its_own_card(cuda):
+    """With two or more cards, a shard's thread sees its own card as the
+    current device (``default_device()``), and its K1 output stays there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    with pm.make_mesh() as mesh:
+        assert mesh.run(device_ops.default_device) == list(mesh.devices)
+        hi, _ = _qes(cuda, 3, 8)
+        q, _ = pm.sharded_rod_shape(mesh, method="fused")(hi[:mesh.size * 100])
+        assert q.devices == mesh.devices

@@ -1,8 +1,8 @@
 """Port parity: rod-rod contact and multi-rod scenes (models/dynamics.py).
 
 ``RodRodContact``'s potential, friction field, partner index and overflow
-flag take the same numpy ``default_rng`` scenes as the JAX package's (eager
-JAX, no jit) and agree to roundoff.  The broad phase, the friction law and
+flag take the same numpy ``default_rng`` scenes as the JAX package's (the
+four JAX calls of a scene under one ``jax.jit``) and agree to roundoff.  The broad phase, the friction law and
 the scene paths (``simulate_scene``, ``scene_accelerations``,
 ``solve_contact_statics(rr=...)``, ``linearized_spectrum(rr=...)``) are
 held to the physical gates of ``tests/test_broadphase.py`` and
@@ -13,6 +13,7 @@ held to the physical gates of ``tests/test_broadphase.py`` and
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from experimental_gpu_programming_for_a_spectral_numerical_integration_tpu.models import (
@@ -77,19 +78,26 @@ def test_rod_rod_contact_matches_jax(scene, kw, overflow):
     v_all = 0.3 * np.random.default_rng(1).standard_normal(tuple(r_all.shape))
     jrr = jdyn.RodRodContact(**kw)
     rr = convert.rod_rod_contact_from_jax(jrr)
-    jr, jw = jnp.asarray(r_all.numpy()), jnp.asarray(w_q.numpy())
-    v_ref = float(jrr.pair_potential(jr, jw, s_grid=rc.points))
+
+    @jax.jit
+    def jax_ref(r, v, w):
+        return (jrr.pair_potential(r, w, s_grid=rc.points),
+                jrr.friction_force(r, v, w, s_grid=rc.points),
+                jrr.broadphase_overflow(r, margin=0.0),
+                None if jrr.budget is None else jrr._partner_index(r))
+
+    v_ref, f_ref, overflow_ref, partners_ref = jax_ref(
+        jnp.asarray(r_all.numpy()), jnp.asarray(v_all), jnp.asarray(w_q.numpy()))
     v = float(rr.pair_potential(r_all, w_q, s_grid=rc.points))
-    assert v_ref > 0.0
-    np.testing.assert_allclose(v, v_ref, rtol=1e-12)
-    f_ref = np.asarray(jrr.friction_force(jr, jnp.asarray(v_all), jw, s_grid=rc.points))
+    assert float(v_ref) > 0.0
+    np.testing.assert_allclose(v, float(v_ref), rtol=1e-12)
+    f_ref = np.asarray(f_ref)
     f = rr.friction_force(r_all, torch.tensor(v_all), w_q, s_grid=rc.points).numpy()
     np.testing.assert_allclose(f, f_ref, rtol=0, atol=1e-12 * np.abs(f_ref).max())
-    assert bool(rr.broadphase_overflow(r_all, margin=0.0)) == bool(
-        jrr.broadphase_overflow(jr, margin=0.0)) == overflow
+    assert bool(rr.broadphase_overflow(r_all, margin=0.0)) == bool(overflow_ref) == overflow
     if rr.budget is not None:
         np.testing.assert_array_equal(rr._partner_index(r_all).numpy(),
-                                      np.asarray(jrr._partner_index(jr)))
+                                      np.asarray(partners_ref))
 
 
 def test_full_and_adequate_budget_match_all_pairs():
