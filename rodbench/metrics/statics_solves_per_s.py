@@ -1,0 +1,5 @@
+"""Load cases the Newton brought within tol, over the whole window (host clock)."""
+
+
+def read(rec):
+    return rec.items / rec.window_s if rec.window_s > 0 else None
