@@ -7,10 +7,16 @@ dense solve below 1e-11; the convergence report decaying),
 the profiling helpers' contracts, the ``.npz`` round trip (a file written
 by the JAX package's ``save_results`` included) and a training-state
 checkpoint of the port's calibration parameters with ``torch.optim.Adam``
-state.
+state. Last, the root ``conftest.py``'s list of slow tests names real JAX
+tests and never one of the port's.
 """
 
+import ast
+import importlib.util
 import json
+import pathlib
+import re
+import tomllib
 
 import numpy as np
 import pytest
@@ -124,3 +130,45 @@ def test_train_state_roundtrip(tmp_path):
                                    rtol=0, atol=0)
     with pytest.raises(TypeError, match="pickles no other object"):
         io.save_train_state(tmp_path / "bad.pt", {"params": params, "hook": object()})
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _parametrize_ids(func, module):
+    """The string ids of ``func``'s ``pytest.mark.parametrize`` values, a
+    literal or a module-level name bound to one."""
+    names = {t.id: node.value for node in module.body if isinstance(node, ast.Assign)
+             for t in node.targets if isinstance(t, ast.Name)}
+    ids = set()
+    for dec in func.decorator_list:
+        if isinstance(dec, ast.Call) and getattr(dec.func, "attr", None) == "parametrize":
+            values = dec.args[1]
+            values = names.get(values.id, values) if isinstance(values, ast.Name) else values
+            ids.update(str(v) for v in ast.literal_eval(values))
+    return ids
+
+
+def test_slow_list_names_jax_tests_with_seconds():
+    """Each ``SLOW`` key is ``tests/<file>::<function>[<id>]`` of a JAX test
+    file (never ``test_torch_*.py``) that defines the function and, with a
+    suffix, the parametrize id; each reason gives its junit seconds; and
+    ``slow`` is a registered marker."""
+    spec = importlib.util.spec_from_file_location("_root_conftest", ROOT / "conftest.py")
+    root_conftest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_conftest)
+    assert root_conftest.SLOW
+    for nodeid, reason in root_conftest.SLOW.items():
+        m = re.fullmatch(r"(tests/test_\w+\.py)::(\w+)(?:\[(.+)\])?", nodeid)
+        assert m, nodeid
+        path, name, param = m.groups()
+        assert (ROOT / path).is_file() and not path.startswith("tests/test_torch_"), nodeid
+        module = ast.parse((ROOT / path).read_text())
+        funcs = [f for f in module.body if isinstance(f, ast.FunctionDef) and f.name == name]
+        assert len(funcs) == 1, nodeid
+        if param is not None:
+            assert param in _parametrize_ids(funcs[0], module), nodeid
+        assert re.search(r"\b\d+(\.\d+)? s\b", reason), (nodeid, reason)
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        markers = tomllib.load(f)["tool"]["pytest"]["ini_options"]["markers"]
+    assert any(m.startswith("slow:") for m in markers), markers
