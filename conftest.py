@@ -6,11 +6,20 @@ the test's junit seconds (six xdist workers, ``--dist loadfile``, on an
 8-core CPU) and the test that still covers its code on every run. Port
 tests (``test_torch_*.py``) are never listed; ``-m slow`` runs the list.
 
+``LIMIT`` is every test's own time limit, its setup, call and teardown
+together: past it the test fails, and the rest of its file runs, so a hang
+costs one test and not the whole run. Every thread's stack is dumped to
+stderr at ``STACKS_AT``, also for a hang inside C code that the alarm cannot
+interrupt.
+
 This file imports neither JAX nor either package: ``tests/conftest.py``
 sets ``XLA_FLAGS`` before JAX is first imported.
 """
 
+import faulthandler
+import os
 import pathlib
+import signal
 import subprocess
 
 import pytest
@@ -55,7 +64,66 @@ SLOW = {
     "tests/test_dynamics.py::test_rod_rod_friction_dissipates_scene_energy":
         "67.7 s; test_dynamics.py::test_rod_rod_friction_force_properties, "
         "test_torch_scenes.py::test_rod_rod_contact_matches_jax",
+    "tests/test_floquet.py::test_floquet_locates_mathieu_tongue_boundary_sharply":
+        "158.5 s; test_floquet.py::test_floquet_multipliers_equal_exp_of_damped_poles, "
+        "test_dynamics.py::test_parametric_stability_map_locates_tongue",
+    "tests/test_examples_smoke.py::test_example_runs[contact_scene.py]":
+        "120.6 s; test_torch_examples.py::test_example_runs[contact_scene], "
+        "test_dynamics.py::test_rod_rod_contact_separates_overlapping_pair",
+    "tests/test_estimation.py::test_filter_beats_per_frame_static_fit":
+        "104.4 s; test_estimation.py::test_tracks_known_driven_motion, "
+        "test_torch_estimation.py::test_ekf_step_matches_jax",
+    "tests/test_examples_smoke.py::test_example_runs[magnetic_catheter.py]":
+        "93.9 s; test_torch_examples.py::test_example_runs[magnetic_catheter], "
+        "test_magnetics.py::test_strong_field_aligns_tip_tangent",
+    "tests/test_estimation.py::test_rts_smoother_improves_on_filter":
+        "81.2 s; test_torch_estimation.py::"
+        "test_rts_step_matches_jax_and_smoothed_covariances_stay_psd runs JAX's rts_smoother",
+    "tests/test_dynamics.py::test_contact_cylinder_drape":
+        "74.7 s; test_torch_dynamics.py::test_mass_and_rhs_every_branch_matches_jax "
+        "(a ContactCylinder among its obstacles)",
+    "tests/test_dynamics.py::test_implicit_newmark_matches_rk4_in_stable_regime":
+        "71.8 s; test_dynamics.py::test_implicit_newmark_stable_far_beyond_rk4_limit, "
+        "test_torch_implicit.py::test_newmark_matches_rk4_and_conserves_energy",
+    "tests/test_cosserat_statics.py::test_solve_statics_differentiable_compliance":
+        "71.0 s; test_torch_statics_dd.py::test_solve_statics_differentiable_matches_jax_grad "
+        "takes jax.grad through the same solve",
+    "tests/test_cosserat_statics.py::test_batched_riks_traverses_fold_family":
+        "70.2 s; test_cosserat_statics.py::test_batched_riks_matches_host_paths, "
+        "test_torch_continuation.py::test_batched_riks_matches_host_walker",
 }
+
+LIMIT = 600
+STACKS_AT = LIMIT - 30
+
+
+class TimeLimitExceeded(BaseException):
+    """A test ran past ``LIMIT``. Not an ``Exception``, so that the test's
+    own ``except Exception`` does not swallow it; ``subprocess.run`` kills
+    the child it was waiting on."""
+
+
+def _time_limit_exceeded(signum, frame):
+    raise TimeLimitExceeded(f"the test ran past its {LIMIT} s time limit")
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_protocol(item):
+    # Output capture is off between the phases, so fd 2 is the real stderr
+    # here; during the phases it is the capture's file, which a test that
+    # never ends would never show.
+    stderr = os.dup(2)
+    previous = signal.signal(signal.SIGALRM, _time_limit_exceeded)
+    faulthandler.dump_traceback_later(STACKS_AT, exit=False, file=stderr)
+    signal.alarm(LIMIT)
+    try:
+        return (yield)
+    finally:
+        signal.alarm(0)
+        faulthandler.cancel_dump_traceback_later()
+        signal.signal(signal.SIGALRM, previous)
+        os.close(stderr)
+
 
 _NATIVE = pathlib.Path(__file__).resolve().parent / "native"
 

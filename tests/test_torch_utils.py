@@ -8,15 +8,20 @@ the profiling helpers' contracts, the ``.npz`` round trip (a file written
 by the JAX package's ``save_results`` included) and a training-state
 checkpoint of the port's calibration parameters with ``torch.optim.Adam``
 state. Last, the root ``conftest.py``'s list of slow tests names real JAX
-tests and never one of the port's.
+tests and never one of the port's, and its per-test time limit fails a
+hanging test and lets the rest of its file run.
 """
 
 import ast
 import importlib.util
 import json
+import os
 import pathlib
 import re
+import subprocess
+import sys
 import tomllib
+from xml.etree import ElementTree
 
 import numpy as np
 import pytest
@@ -172,3 +177,54 @@ def test_slow_list_names_jax_tests_with_seconds():
     with open(ROOT / "pyproject.toml", "rb") as f:
         markers = tomllib.load(f)["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("slow:") for m in markers), markers
+
+
+_HANGING_FILE = '''
+import subprocess, sys, time
+
+def test_sleeps():
+    time.sleep(30)
+
+def test_waits_on_a_sleeping_child():
+    code = "import os, sys, time; open(sys.argv[1], 'w').write(str(os.getpid())); time.sleep(30)"
+    subprocess.run([sys.executable, "-c", code, {pidfile!r}])
+
+def test_passes():
+    pass
+'''
+
+_LIMITED_CONFTEST = '''
+import importlib.util
+
+spec = importlib.util.spec_from_file_location("_root_conftest", {conftest!r})
+root_conftest = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(root_conftest)
+root_conftest.LIMIT, root_conftest.STACKS_AT = 1, 0.5
+pytest_runtest_protocol = root_conftest.pytest_runtest_protocol
+'''
+
+
+def test_time_limit_fails_a_hanging_test_and_the_file_runs_on(tmp_path):
+    """The root ``conftest.py``'s per-test limit, cut to 1 s in a child
+    pytest: a test asleep and a test waiting in ``subprocess.run`` on a
+    sleeping child each fail at the limit with every thread's stack dumped
+    first, the child is killed, and the file's next test passes."""
+    pidfile = tmp_path / "child.pid"
+    (tmp_path / "pytest.ini").write_text("[pytest]\n")
+    (tmp_path / "conftest.py").write_text(
+        _LIMITED_CONFTEST.format(conftest=str(ROOT / "conftest.py")))
+    (tmp_path / "test_hangs.py").write_text(_HANGING_FILE.format(pidfile=str(pidfile)))
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--junitxml=junit.xml",
+         "test_hangs.py"],
+        cwd=tmp_path, env={**os.environ, "PYTEST_DISABLE_PLUGIN_AUTOLOAD": "1"},
+        capture_output=True, text=True, timeout=60)
+    assert run.returncode == 1, run.stdout + run.stderr
+    cases = ElementTree.parse(tmp_path / "junit.xml").getroot().iter("testcase")
+    failures = {case.get("name"): [f.get("message") for f in case.iter("failure")] for case in cases}
+    limit_hit = ["_root_conftest.TimeLimitExceeded: the test ran past its 1 s time limit"]
+    assert failures == {"test_sleeps": limit_hit, "test_waits_on_a_sleeping_child": limit_hit,
+                        "test_passes": []}, failures
+    assert run.stderr.count("Timeout (0:00:00.500000)!") == 2, run.stderr
+    with pytest.raises(ProcessLookupError):
+        os.kill(int(pidfile.read_text()), 0)
